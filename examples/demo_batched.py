@@ -3,11 +3,10 @@ once.
 
 The reference benchmark (``/root/reference/examples/bmark.py:45-51``)
 solves ONE system with CGS, TFQMR and Bi-CGSTAB in sequence.  The
-TPU-native framework turns the same protocol sideways: ONE fused
+JAX-native framework turns the same protocol sideways: ONE fused
 while-loop per method solves an (n, K) block of right-hand sides, and
-the operator's native SpMM kernel streams the matrix once per iteration
-for all K systems (on a v5e, each BELL K=8 column costs 0.60x a single
-matvec).
+the operator's block product serves all K systems in one pass per
+iteration.
 
 Run from anywhere: ``python examples/demo_batched.py [K]``.
 """

@@ -2,7 +2,7 @@
 
 The reference's only factorization preconditioner is the CHOLMOD
 ``CholeskyOperator`` (``/root/reference/pykrylov/linop/cholesky.py``),
-whose sparse triangular solves do not map onto the MXU.  The TPU-native
+whose sparse triangular solves are sequential.  The JAX-native
 alternative is matvec-only: estimate spectral bounds with a fused
 Lanczos sweep, build ``p(A) ~ A^{-1}`` as a fixed-degree Chebyshev
 polynomial, and hand it to CG as ``M=`` — each outer iteration then
@@ -28,8 +28,7 @@ from pykrylov_tpu.solvers import cg
 
 
 def main(grid_n=None):
-    on_tpu = jax.default_backend() == "tpu"
-    n = grid_n or (64 if on_tpu else 12)
+    n = grid_n or 64
     vals, rows, cols, shape = poisson3d_coo(n, dtype=np.float32)
     A = operator_from_coo(vals, rows, cols, shape, symmetric=True)
     m = shape[0]

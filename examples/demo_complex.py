@@ -1,14 +1,13 @@
-"""Complex systems on TPU demo: Hermitian solve via the real-equivalent
+"""Complex systems demo: Hermitian solve via the real-equivalent
 formulation.
 
 The reference handles complex operators natively in NumPy
 (``/root/reference/pykrylov/tools/types.py``, conjugation-inferred
-``.H`` twins).  The TPU platform rejects complex dtypes at run time, so
-this framework solves ``A z = b`` as the real system
-``[[Re A, -Im A], [Im A, Re A]] [Re z; Im z] = [Re b; Im b]`` instead —
+``.H`` twins).  This demo solves ``A z = b`` as the real system
+``[[Re A, -Im A], [Im A, Re A]] [Re z; Im z] = [Re b; Im b]`` —
 Hermitian positive definite A maps to a real SPD system whose spectrum
 is the (real) complex spectrum with doubled multiplicity, so CG behaves
-identically while running in f32 on the MXU.
+identically in real arithmetic.
 
 Run from anywhere: ``python examples/demo_complex.py [n]``.
 """
@@ -26,8 +25,7 @@ from pykrylov_tpu.solvers import cg, lsqr
 
 
 def main(n=None):
-    on_tpu = jax.default_backend() == "tpu"
-    n = n or (256 if on_tpu else 48)
+    n = n or 256
     rng = np.random.default_rng(0)
 
     # Hermitian positive definite system
@@ -39,8 +37,7 @@ def main(n=None):
     zstar = rng.standard_normal(n) + 1j * rng.standard_normal(n)
     b = a @ zstar
 
-    dt = np.float32 if on_tpu else np.float64
-    ct = np.complex64 if on_tpu else np.complex128
+    dt, ct = np.float32, np.complex64
     op = real_equivalent_operator(a.astype(ct), hermitian=True, dtype=dt)
     print("Hermitian PD n=%d (kappa 1e3) on %s -> real SPD %s"
           % (n, jax.devices()[0], op.shape))

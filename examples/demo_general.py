@@ -1,17 +1,15 @@
-"""General-sparsity + verified-f32 demo (round-2 TPU-native surface).
+"""General-sparsity + verified-f32 demo (round-2 JAX-native surface).
 
 Shows the two features with no reference counterpart:
 
-1. the BELL Pallas kernel auto-selected for a large general matrix
-   (the reference's pysparse C SpMV role, ``linop/linop.py:697-706``),
+1. the automatic format choice for a large general matrix (XLA ELL, the
+   reference's pysparse C SpMV role, ``linop/linop.py:697-706``),
    driving BiCGSTAB with a verified final residual;
 2. verified residual-replacement CG certifying rtol 1e-6 in f32 on the
    ill-conditioned 1138bus system — the plain f32 recurrence claims
    convergence its true residual does not support.
 
-Runs on whatever backend is default (TPU if present; BELL falls back to
-interpret mode on CPU — slow but correct, so keep the demo size small
-there).
+Runs on the default device (set JAX_PLATFORMS=cpu for the CPU).
 """
 
 import os as _os
@@ -33,9 +31,8 @@ def general_spmv_demo():
     # nonsymmetric banded general matrix, diagonally dominant (f32-
     # friendly: BiCGSTAB's recurrence stagnates on jpwh-class matrices
     # in f32 — use rtol within the attainable range and VERIFY)
-    on_tpu = jax.default_backend() == "tpu"
     rng = np.random.default_rng(0)
-    n = 63424 if on_tpu else 8192
+    n = 63424
     k = 8
     rows = np.repeat(np.arange(n), k)
     cols = np.clip(rows + rng.integers(-1500, 1501, size=n * k), 0, n - 1)
@@ -45,9 +42,8 @@ def general_spmv_demo():
     vals = np.concatenate([vals, np.full(n, 2.0, np.float32)])
 
     op = sparse_operator((vals, rows, cols, (n, n)), fmt="auto")
-    fmt = "BELL (Pallas)" if hasattr(op, "bytes_per_nnz") else "XLA ELL"
-    print("general %dx%d, %d nnz -> auto format: %s (TPU backend "
-          "auto-selects BELL)" % (n, n, len(vals), fmt))
+    print("general %dx%d, %d nnz -> auto format: %s"
+          % (n, n, len(vals), type(op.container).__name__))
 
     b = op * jnp.ones(n, jnp.float32)
     res = bicgstab(op, b, rtol=1e-4, verify_final=True)

@@ -1,15 +1,15 @@
-"""Sharded GENERAL-sparsity demo: partition-time gather schedule + the
-BELL Pallas kernel per shard (`parallel.GatherBellOperator`).
+"""Sharded GENERAL-sparsity demo: partition-time gather schedule with
+XLA ELL local compute (`parallel.GatherEllOperator`).
 
 The reference's multi-matrix story was single-process pysparse C SpMV
-(`examples/bmark.py:34`); the TPU-native equivalent shards the rows over
+(`examples/bmark.py:34`); the JAX-native equivalent shards the rows over
 a device mesh, exchanges only the x entries each device actually
-references (one ppermute round per mesh shift, riding ICI), and runs the
-BELL kernel on each local block.  Prints the solve summary and the
-measured communication volume vs the all-gather fallback.
+references (one ppermute round per mesh shift), and runs the ELL product
+on each local block.  Prints the solve summary and the measured
+communication volume vs the all-gather fallback.
 
-Runs on a virtual 8-device CPU mesh by default; set PYKRYLOV_REAL_MESH=1
-on a multi-chip slice.
+Runs on the default devices; for a virtual mesh on a CPU host set
+``JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8``.
 
 Usage: python demo_general_sharded.py
 """
@@ -19,20 +19,12 @@ import sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(
     _os.path.abspath(__file__))))
 
-import jax as _jax
-if not _os.environ.get("PYKRYLOV_REAL_MESH"):
-    _jax.config.update("jax_platforms", "cpu")
-    try:
-        _jax.config.update("jax_num_cpu_devices", 8)
-    except Exception:
-        pass
-
 import numpy as np
 import jax
 import jax.numpy as jnp
 
 from pykrylov_tpu.parallel import (make_mesh, shard_vector,
-                                   GatherBellOperator)
+                                   GatherEllOperator)
 from pykrylov_tpu.sparse import formats as F
 from pykrylov_tpu.solvers import cg
 
@@ -52,7 +44,7 @@ def main():
     coo = F.coo_from_arrays(vals_s, rows_s, cols_s, (n, n), device=False)
 
     mesh = make_mesh(len(jax.devices()))
-    op = GatherBellOperator(coo, mesh, symmetric=True)
+    op = GatherEllOperator(coo, mesh, symmetric=True)
     print("mesh: %d devices | scheduled comm %d entries/mv "
           "(true %d) vs all-gather %d  [%.1fx less]"
           % (mesh.size, op.comm_entries_per_matvec, op.comm_entries_true,

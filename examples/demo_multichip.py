@@ -3,8 +3,9 @@
 The multi-chip north-star workload (BASELINE "Configs": preconditioned CG
 on generated 3-D Poisson sharded across devices).  Runs the same
 per-device problem size on 1, 2, 4, ... devices and reports wall time and
-weak-scaling efficiency.  On a CPU host, set
-``XLA_FLAGS=--xla_force_host_platform_device_count=8`` to simulate a mesh.
+weak-scaling efficiency, on the default devices.  To simulate a mesh on a
+CPU host, set ``JAX_PLATFORMS=cpu
+XLA_FLAGS=--xla_force_host_platform_device_count=8``.
 
 Usage: python demo_multichip.py [grid_n_per_device_scale]
 """
@@ -12,19 +13,6 @@ Usage: python demo_multichip.py [grid_n_per_device_scale]
 import os as _os
 import sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))  # repo root
-
-import jax as _jax
-if not _os.environ.get("PYKRYLOV_REAL_MESH"):
-    # Default: a virtual 8-device CPU mesh so the scaling sweep exercises
-    # real collectives on any host.  Set PYKRYLOV_REAL_MESH=1 on a true
-    # multi-chip TPU slice to run the sweep over ICI instead.  (Checking
-    # jax.devices() here would initialize the backend and make the switch
-    # impossible, hence the env flag.)
-    _jax.config.update("jax_platforms", "cpu")
-    try:
-        _jax.config.update("jax_num_cpu_devices", 8)
-    except Exception:
-        pass
 
 import sys
 import time

@@ -26,15 +26,9 @@ import numpy as np
 
 
 def main(n_devices=8):
-    # multi-device story: simulate the mesh on the CPU backend (the
-    # single local TPU chip would give a 1-slab demo); switch BEFORE
-    # any backend initialization (see demo_multichip.py)
-    import jax as _jax
-    _jax.config.update("jax_platforms", "cpu")
-    try:
-        _jax.config.update("jax_num_cpu_devices", n_devices)
-    except Exception:
-        pass
+    # runs on the default devices (one slab per device); for a virtual
+    # mesh on a CPU host set JAX_PLATFORMS=cpu
+    # XLA_FLAGS=--xla_force_host_platform_device_count=8
     import jax
     n_devices = min(n_devices, len(jax.devices()))
     import jax.numpy as jnp

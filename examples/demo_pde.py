@@ -15,7 +15,6 @@ import sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))  # repo root
 
 import jax as _jax
-_jax.config.update("jax_platforms", "cpu")
 _jax.config.update("jax_enable_x64", True)
 
 import numpy as np

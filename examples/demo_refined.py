@@ -1,8 +1,8 @@
 """Verified iterative refinement demo (`solvers/refine.py`).
 
 The reference runs f64 NumPy, where unverified recurrences drift
-invisibly at its tolerances; on TPU the native dtype is f32, where an
-unverified stopping test can be off by orders of magnitude.  This demo
+invisibly at its tolerances; in an f32 solve an unverified stopping
+test can be off by orders of magnitude.  This demo
 shows the family-wide answer:
 
 1. ``solve(A, b, verified=True)`` — front-door verified solve (CG legs
@@ -12,7 +12,7 @@ shows the family-wide answer:
 3. honest floor reporting: asking for a tolerance below the f32
    refinement floor returns istop 3, not a false claim.
 
-Runs on any backend (CPU here is fine — refinement is solver-level).
+Runs on the default device (refinement is solver-level).
 """
 
 import os as _os

@@ -1,10 +1,10 @@
-"""pykrylov_tpu — a TPU-native Krylov subspace solver framework.
+"""pykrylov_tpu — a JAX-native Krylov subspace solver framework.
 
-Built from scratch on JAX / XLA / Pallas / pjit with the capabilities of
+Built from scratch on JAX / XLA / pjit with the capabilities of
 the reference PythonOptimizers/pykrylov library (see SURVEY.md): a
 composable linear-operator layer, the full Krylov solver family (CG,
 MINRES, SYMMLQ, BiCGSTAB, CGS, TFQMR, LSQR, LSMR, CRAIG, CRAIG-MR),
-sparse-matrix containers with Pallas SpMV kernels, MatrixMarket tooling,
+sparse-matrix containers with XLA SpMV paths, MatrixMarket tooling,
 a problem gallery, and multi-chip sharding over ``jax.sharding.Mesh``.
 """
 

@@ -3,14 +3,13 @@
 The reference ships two small general matrices (``examples/jpwh_991.mtx``,
 ``examples/1138bus.mtx``); its SpMV hot path for them is pysparse C
 (``/root/reference/pykrylov/linop/linop.py:697-706``).  Benchmarking a
-TPU kernel needs the same *sparsity class* at HBM-filling sizes, so this
+device SpMV needs the same *sparsity class* at HBM-filling sizes, so this
 module scales a bundled pattern up by block-diagonal tiling with weak
 random coupling between adjacent tiles — per-row degree distribution,
 column scatter, and band structure inside each tile are exactly the
 original's.
 
-Host-side NumPy only (device round-trips through a remote transport
-dominate construction otherwise).
+Host-side NumPy only: the triples feed host-side format conversions.
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ Supports the coordinate and array formats with real / integer / complex /
 pattern fields and general / symmetric / skew-symmetric / hermitian
 qualifiers.  Returns COO triples; symmetric-family storage is expanded to
 full explicitly (strictly-off-diagonal entries mirrored), which suits the
-TPU containers where compute formats want the full pattern.
+device containers where compute formats want the full pattern.
 """
 
 from __future__ import annotations

@@ -19,8 +19,7 @@ import threading
 import numpy as np
 
 __all__ = ["available", "mm_parse_native", "ell_fill_native",
-           "dia_fill_native", "row_counts_native", "bell_plan_native",
-           "bell_sort_plan_w1_native"]
+           "dia_fill_native", "row_counts_native"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "native.cpp")
@@ -88,13 +87,6 @@ def _load():
         lib.row_counts.restype = None
         lib.row_counts.argtypes = [c.c_int64, c.c_void_p, c.c_int64,
                                    c.c_void_p]
-        lib.bell_plan.restype = c.c_int
-        lib.bell_plan.argtypes = [c.c_int64, c.c_void_p, c.c_void_p,
-                                  c.c_int64, c.c_double] + [c.c_void_p] * 4
-        lib.bell_sort_plan_w1.restype = c.c_int
-        lib.bell_sort_plan_w1.argtypes = [
-            c.c_int64, c.c_void_p, c.c_void_p, c.c_int64,
-            c.c_double] + [c.c_void_p] * 7
         _lib = lib
         return lib
 
@@ -219,57 +211,3 @@ def row_counts_native(rows, m):
     lib.row_counts(len(rows), _ptr(rows), m, _ptr(counts))
     return counts
 
-
-def bell_plan_native(rows, cols, nblocks, spill_cost):
-    """Per-block BELL window planning (the packer's Python hot spot).
-
-    ``rows``/``cols``: (row, col)-sorted int64 structure arrays.
-    ``spill_cost``: bytes charged per spilled entry, or None to disable.
-    Returns ``(e_base, e_woff, e_cap, depth_per_block)`` or ``None``
-    when the native library is unavailable.
-    """
-    if not available():
-        return None
-    lib = _load()
-    rows = np.ascontiguousarray(rows, dtype=np.int64)
-    cols = np.ascontiguousarray(cols, dtype=np.int64)
-    nnz = len(rows)
-    e_base = np.zeros(nnz, dtype=np.int64)
-    e_woff = np.zeros(nnz, dtype=np.int64)
-    e_cap = np.zeros(nnz, dtype=np.int64)
-    dpb = np.zeros(nblocks, dtype=np.int64)
-    sc = -1.0 if spill_cost is None else float(spill_cost)
-    lib.bell_plan(nnz, _ptr(rows), _ptr(cols), int(nblocks), sc,
-                  _ptr(e_base), _ptr(e_woff), _ptr(e_cap), _ptr(dpb))
-    return e_base, e_woff, e_cap, dpb
-
-
-def bell_sort_plan_w1_native(rows, cols, nblocks, spill_cost):
-    """Single-sort window=1 BELL planning (sort + caps + ordinals).
-
-    ``rows``/``cols``: UNSORTED int64 structure arrays.  Returns
-    ``(order, rs, cs, e_woff, e_cap, k_ord, depth_per_block)`` with the
-    per-entry arrays in (block, band, row, col)-sorted order, or
-    ``None`` when the native library is unavailable or an index exceeds
-    2^31 (the NumPy path handles those)."""
-    if not available():
-        return None
-    lib = _load()
-    rows = np.ascontiguousarray(rows, dtype=np.int64)
-    cols = np.ascontiguousarray(cols, dtype=np.int64)
-    nnz = len(rows)
-    order = np.empty(nnz, dtype=np.int64)
-    rs = np.empty(nnz, dtype=np.int64)
-    cs = np.empty(nnz, dtype=np.int64)
-    e_woff = np.empty(nnz, dtype=np.int64)
-    e_cap = np.empty(nnz, dtype=np.int64)
-    k_ord = np.empty(nnz, dtype=np.int64)
-    dpb = np.zeros(nblocks, dtype=np.int64)
-    sc = -1.0 if spill_cost is None else float(spill_cost)
-    rc = lib.bell_sort_plan_w1(nnz, _ptr(rows), _ptr(cols), int(nblocks),
-                               sc, _ptr(order), _ptr(rs), _ptr(cs),
-                               _ptr(e_woff), _ptr(e_cap), _ptr(k_ord),
-                               _ptr(dpb))
-    if rc != 0:
-        return None
-    return order, rs, cs, e_woff, e_cap, k_ord, dpb

@@ -3,9 +3,9 @@
 // The reference delegated its sparse-matrix I/O and storage to pysparse's
 // C extensions (SURVEY §2.5: `examples/bmark.py:34`,
 // `linop/linop.py:688-720`); this library's equivalent is a small C++
-// kernel set for the host-side work that feeds the TPU: MatrixMarket
+// kernel set for the host-side work that feeds the device: MatrixMarket
 // parsing and COO -> ELL / DIA format packing.  The device compute path is
-// JAX/XLA/Pallas; these routines only prepare buffers, so they expose a
+// JAX/XLA; these routines only prepare buffers, so they expose a
 // plain extern "C" ABI consumed from Python via ctypes (no pybind11 in the
 // image).
 //
@@ -192,243 +192,6 @@ void row_counts(int64_t nnz, const int32_t* rows, int64_t m,
                 int64_t* counts) {
   memset(counts, 0, m * sizeof(int64_t));
   for (int64_t i = 0; i < nnz; ++i) counts[rows[i]]++;
-}
-
-// ---------------------------------------------------------------------
-// BELL window planning (the per-block DP of sparse/bell.py, which is the
-// Python-level hot spot of packing: ~30-45 s at 1M rows).
-//
-// Inputs are (row, col)-sorted COO structure.  Per 128-row block: build
-// per-(band, lane) counts, run the 1-/2-band window DP minimizing
-// streamed bytes with an optional byte-optimal depth cap (entries deeper
-// than the cap spill), and emit per-entry window base band / window row
-// offset / cap plus the capped total depth per block.  Mirrors
-// _plan_block_windows/_capped_depth in sparse/bell.py exactly.
-// ---------------------------------------------------------------------
-
-namespace {
-
-constexpr int kLanes = 128;
-constexpr double kSlotBytes = 5.0;
-
-// Byte-optimal capped depth for one window given per-lane counts.
-// cost(d) = 5*128*d + spill*overflow(d); returns best d (cost via *out).
-int64_t capped_depth(const int32_t* c, double spill, bool use_spill,
-                     double* out_cost) {
-  int32_t cmax = 0;
-  int64_t total = 0;
-  for (int r = 0; r < kLanes; ++r) {
-    if (c[r] > cmax) cmax = c[r];
-    total += c[r];
-  }
-  if (cmax == 0) { *out_cost = 0.0; return 0; }
-  if (!use_spill) {
-    *out_cost = kSlotBytes * kLanes * (double)cmax;
-    return cmax;
-  }
-  // histogram of counts -> overflow(d) by suffix sums
-  std::vector<int64_t> hist(cmax + 1, 0);
-  for (int r = 0; r < kLanes; ++r) hist[c[r]]++;
-  double best = spill * (double)total;  // d = 0: everything spills
-  int64_t bestd = 0;
-  int64_t over = total;     // overflow(d) = sum max(c_r - d, 0)
-  int64_t deeper = kLanes;  // #lanes with count > d
-  for (int64_t d = 1; d <= cmax; ++d) {
-    deeper -= hist[d - 1];
-    over -= deeper;
-    const double cost = kSlotBytes * kLanes * (double)d
-                        + spill * (double)over;
-    if (cost < best) { best = cost; bestd = d; }
-  }
-  *out_cost = best;
-  return bestd;
-}
-
-}  // namespace
-
-// Plan every block's windows.  rows/cols are (row, col)-sorted int64;
-// spill_cost < 0 disables spilling.  Outputs (length nnz): e_base,
-// e_woff, e_cap; depth_per_block has length nblocks (>= 1 enforced by
-// the caller).  Returns 0.
-int bell_plan(int64_t nnz, const int64_t* rows, const int64_t* cols,
-              int64_t nblocks, double spill_cost,
-              int64_t* e_base, int64_t* e_woff, int64_t* e_cap,
-              int64_t* depth_per_block) {
-  const bool use_spill = spill_cost >= 0.0;
-  memset(depth_per_block, 0, nblocks * sizeof(int64_t));
-  int64_t lo = 0;
-  // scratch reused across blocks
-  std::vector<int64_t> bands;          // present bands, ascending
-  std::vector<int32_t> counts;         // (nbands, 128) lane counts
-  std::vector<double> dp;
-  std::vector<int8_t> choice;
-  std::vector<int64_t> dcap;
-  std::vector<int32_t> pairc(kLanes);
-  while (lo < nnz) {
-    const int64_t blk = rows[lo] / kLanes;
-    int64_t hi = lo;
-    while (hi < nnz && rows[hi] / kLanes == blk) ++hi;
-
-    // present bands (entries are row-then-col sorted, so bands are NOT
-    // globally sorted within the block: collect + sort unique)
-    bands.clear();
-    for (int64_t i = lo; i < hi; ++i) bands.push_back(cols[i] / kLanes);
-    std::sort(bands.begin(), bands.end());
-    bands.erase(std::unique(bands.begin(), bands.end()), bands.end());
-    const int64_t nb = (int64_t)bands.size();
-
-    counts.assign(nb * kLanes, 0);
-    for (int64_t i = lo; i < hi; ++i) {
-      const int64_t b = cols[i] / kLanes;
-      const int64_t j = std::lower_bound(bands.begin(), bands.end(), b)
-                        - bands.begin();
-      counts[j * kLanes + (rows[i] % kLanes)]++;
-    }
-
-    // DP over bands with 1- or 2-band (adjacent) windows
-    dp.assign(nb + 1, 0.0);
-    choice.assign(nb + 1, 1);
-    dcap.assign(nb + 1, 0);
-    for (int64_t j = 1; j <= nb; ++j) {
-      double c1;
-      const int64_t d1 = capped_depth(&counts[(j - 1) * kLanes],
-                                      spill_cost, use_spill, &c1);
-      dp[j] = dp[j - 1] + c1;
-      choice[j] = 1;
-      dcap[j] = d1;
-      if (j >= 2 && bands[j - 1] == bands[j - 2] + 1) {
-        for (int r = 0; r < kLanes; ++r)
-          pairc[r] = counts[(j - 1) * kLanes + r]
-                     + counts[(j - 2) * kLanes + r];
-        double c2;
-        const int64_t d2 = capped_depth(pairc.data(), spill_cost,
-                                        use_spill, &c2);
-        if (dp[j - 2] + c2 < dp[j]) {
-          dp[j] = dp[j - 2] + c2;
-          choice[j] = 2;
-          dcap[j] = d2;
-        }
-      }
-    }
-
-    // backtrack -> per-band window id, start, capped depth, row offset
-    std::vector<int64_t> wstart, wdepth;
-    std::vector<int8_t> wwidth;
-    for (int64_t j = nb; j > 0;) {
-      const int w = choice[j];
-      wstart.push_back(bands[j - w]);
-      wdepth.push_back(dcap[j]);
-      wwidth.push_back((int8_t)w);
-      j -= w;
-    }
-    std::reverse(wstart.begin(), wstart.end());
-    std::reverse(wdepth.begin(), wdepth.end());
-    std::reverse(wwidth.begin(), wwidth.end());
-
-    // band -> (window base, window row offset, cap)
-    std::vector<int64_t> b2base(nb), b2off(nb), b2cap(nb);
-    int64_t off = 0, bi = 0, total = 0;
-    for (size_t w = 0; w < wstart.size(); ++w) {
-      for (int k = 0; k < wwidth[w]; ++k, ++bi) {
-        b2base[bi] = wstart[w];
-        b2off[bi] = off;
-        b2cap[bi] = wdepth[w];
-      }
-      off += wdepth[w];
-      total += wdepth[w];
-    }
-    for (int64_t i = lo; i < hi; ++i) {
-      const int64_t b = cols[i] / kLanes;
-      const int64_t j = std::lower_bound(bands.begin(), bands.end(), b)
-                        - bands.begin();
-      e_base[i] = b2base[j];
-      e_woff[i] = b2off[j];
-      e_cap[i] = b2cap[j];
-    }
-    depth_per_block[blk] = total;
-    lo = hi;
-  }
-  return 0;
-}
-
-// Single-sort planning for the window=1 (v3) BELL layout.
-//
-// Sorts entries by (block, band, row, col) via one composite 62-bit key
-// (blk and band each fit 24 bits for row/col < 2^31), then derives in
-// one linear walk everything the Python packer needs: the sorted
-// permutation, per-entry window cap / row offset, the per-entry ordinal
-// within its (row, window) group, and per-block total depth.  This
-// replaces a NumPy pipeline of lexsort + run-flag cumsums that costs
-// ~10 s at 6M nnz on a slow host.  spill_cost < 0 disables spilling
-// (cap = per-window max lane count); otherwise cap is the t-th largest
-// lane count with t = ceil(5*128/spill_cost) (see _plan_bands_sorted).
-// Outputs (length nnz): order, rs, cs (sorted rows/cols), e_woff,
-// e_cap, k_ord; depth_per_block has length nblocks.  Returns 0, or 1
-// when a row/col exceeds 2^31 (caller falls back to NumPy).
-int bell_sort_plan_w1(int64_t nnz, const int64_t* rows,
-                      const int64_t* cols, int64_t nblocks,
-                      double spill_cost, int64_t* order, int64_t* rs,
-                      int64_t* cs, int64_t* e_woff, int64_t* e_cap,
-                      int64_t* k_ord, int64_t* depth_per_block) {
-  const bool use_spill = spill_cost >= 0.0;
-  const int64_t t_spill =
-      use_spill ? (int64_t)std::ceil(5.0 * 128.0 / spill_cost) : 0;
-  memset(depth_per_block, 0, nblocks * sizeof(int64_t));
-  std::vector<std::pair<uint64_t, uint32_t>> kv(nnz);
-  for (int64_t i = 0; i < nnz; ++i) {
-    int64_t r = rows[i], c = cols[i];
-    if (r < 0 || c < 0 || r >= (1LL << 31) || c >= (1LL << 31)) return 1;
-    uint64_t key = ((uint64_t)(r >> 7) << 38) | ((uint64_t)(c >> 7) << 14)
-                   | ((uint64_t)(r & 127) << 7) | (uint64_t)(c & 127);
-    kv[i] = {key, (uint32_t)i};
-  }
-  std::sort(kv.begin(), kv.end());
-  for (int64_t i = 0; i < nnz; ++i) {
-    order[i] = kv[i].second;
-    rs[i] = rows[kv[i].second];
-    cs[i] = cols[kv[i].second];
-  }
-  // one pass over (block, band) window runs
-  std::vector<int64_t> lane_counts;
-  int64_t i = 0;
-  while (i < nnz) {
-    uint64_t wkey = kv[i].first >> 14;         // (blk, band)
-    int64_t blk = (int64_t)(kv[i].first >> 38);
-    int64_t j = i;
-    lane_counts.clear();
-    while (j < nnz && (kv[j].first >> 14) == wkey) {
-      int64_t lane = (kv[j].first >> 7) & 127;
-      int64_t j2 = j;
-      while (j2 < nnz && ((kv[j2].first >> 7) & 127) == lane
-             && (kv[j2].first >> 14) == wkey)
-        ++j2;
-      lane_counts.push_back(j2 - j);
-      // ordinal within the (row, window) group
-      for (int64_t q = j; q < j2; ++q) k_ord[q] = q - j;
-      j = j2;
-    }
-    int64_t cap;
-    if (!use_spill || t_spill < 1) {
-      cap = *std::max_element(lane_counts.begin(), lane_counts.end());
-    } else if (t_spill > 128) {
-      cap = 0;
-    } else if ((int64_t)lane_counts.size() < t_spill) {
-      cap = 0;  // fewer than t lanes present: t-th largest count is 0
-    } else {
-      std::nth_element(lane_counts.begin(),
-                       lane_counts.begin() + (t_spill - 1),
-                       lane_counts.end(), std::greater<int64_t>());
-      cap = lane_counts[t_spill - 1];
-    }
-    int64_t woff = depth_per_block[blk];
-    for (int64_t q = i; q < j; ++q) {
-      e_woff[q] = woff;
-      e_cap[q] = cap;
-    }
-    depth_per_block[blk] += cap;
-    i = j;
-  }
-  return 0;
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 """Block operators.
 
-TPU-native equivalent of the reference block-operator layer
+JAX-native equivalent of the reference block-operator layer
 (``/root/reference/pykrylov/linop/blkop.py``): a 2-D grid of operators acting
 on conformally split vectors, a block-diagonal variant, and preconditioner
 aliases exposing ``solve``.  The block matvec slices the input once at trace

@@ -1,13 +1,13 @@
 """Cholesky-based inverse operators.
 
-TPU-native equivalents of the reference's CHOLMOD wrapper
+JAX-native equivalents of the reference's CHOLMOD wrapper
 (``/root/reference/pykrylov/linop/cholesky.py:15-43``), which exposes the
 *inverse* of an SPD matrix as an operator via a sparse Cholesky
-factorization.  CHOLMOD-class supernodal sparse factorization does not map
-to the TPU; per SURVEY §2.5 the build provides:
+factorization.  CHOLMOD-class supernodal sparse factorization has no
+XLA primitive; per SURVEY §2.5 the build provides:
 
   * :class:`CholeskyOperator` — on-device **dense** Cholesky
-    (``jax.scipy.linalg.cho_factor`` on the MXU); right choice for the
+    (``jax.scipy.linalg.cho_factor``); right choice for the
     moderate-n systems where the reference used CHOLMOD.
   * :class:`HostFactorizationOperator` — escape hatch that runs any
     host-side factorization (scipy ``splu``/``cho_factor``, CHOLMOD, ...)
@@ -66,7 +66,7 @@ _register_as_linop(CholeskyOperator)
 class HostFactorizationOperator(LinearOperator):
     """Wrap a host-side ``solve(rhs) -> x`` callable as a jit-safe operator.
 
-    Use for factorizations with no TPU analogue (sparse Cholesky/LU): the
+    Use for factorizations with no device analogue (sparse Cholesky/LU): the
     factorization lives on the host; each application crosses to the host
     via ``jax.pure_callback``.  Intended for preconditioning where the
     per-iteration solve is cheap relative to device work, mirroring the

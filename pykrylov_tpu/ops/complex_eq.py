@@ -1,13 +1,10 @@
-"""Complex linear systems ON TPU via the real-equivalent formulation.
+"""Complex linear systems via the real-equivalent formulation.
 
 The reference supports complex operators natively (dtype whitelists
 ``/root/reference/pykrylov/tools/types.py:1-16``, conjugation-inferred
 ``.H`` twins ``linop/linop.py:172-211``), and so does this package's
-operator layer — but the TPU platform rejects complex dtypes outright
-(UNIMPLEMENTED at run time; ROADMAP "Complex on TPU"), so complex-typed
-solves only run on the CPU backend.
-
-This module closes that gap the TPU way: a complex system ``A z = b``
+operator layer.  This module offers the alternative for backends or
+solvers that want real arithmetic only: a complex system ``A z = b``
 is solved as the REAL system
 
     [ Re A   -Im A ] [ Re z ]   [ Re b ]
@@ -37,9 +34,10 @@ four blocks share two sparsity patterns, and explicitly-zero Re/Im
 blocks are dropped at packing time (a real-valued matrix costs exactly
 2x nnz, not 4x).
 
-Complex SOLVES on TPU hardware are therefore one wrapper away:
-``complex_solve(cg, A, b, rtol=...)`` packs, solves in f32 on the MXU
-with the Pallas sparse kernels, and unpacks a complex result.
+A real-arithmetic complex solve is therefore one wrapper away:
+``complex_solve(cg, A, b, rtol=...)`` packs, solves with the real
+sparse operators, and unpacks a complex result.  Whether it beats
+native complex arithmetic on the GPU is not measured.
 """
 
 from __future__ import annotations
@@ -62,7 +60,7 @@ def pack_complex(z):
     Isometric: ``||pack(z)|| = ||z||`` and
     ``pack(u) . pack(v) = Re(u^H v)``.  Real inputs pack with a zero
     imaginary half.  Host-side (NumPy): packing happens before the
-    device transport, where complex dtypes are unavailable on TPU.
+    operands move to the device.
     """
     z = np.asarray(z)
     return np.concatenate([z.real, z.imag], axis=0).astype(
@@ -71,8 +69,7 @@ def pack_complex(z):
 
 def unpack_complex(x):
     """(2m,) or (2m, K) real -> complex (m,) or (m, K): inverse of
-    :func:`pack_complex`.  Accepts device arrays (pulls to host —
-    complex dtypes cannot live on the TPU device)."""
+    :func:`pack_complex`.  Accepts device arrays (pulls to host)."""
     x = np.asarray(x)
     m2 = x.shape[0]
     if m2 % 2:
@@ -142,14 +139,13 @@ def real_equivalent_operator(source, hermitian=False, fmt="auto",
     marks the real equivalent symmetric (valid iff A is Hermitian —
     NOT for merely complex-symmetric A, whose real equivalent is
     unsymmetric).  ``dtype`` is the REAL compute dtype (e.g.
-    ``jnp.float32`` on TPU for complex64 inputs).
+    ``jnp.float32`` for complex64 inputs).
 
     A DENSE source builds a dense :class:`MatrixOperator` over the
-    (2m, 2n) real-equivalent array — one MXU matmul per product (the
+    (2m, 2n) real-equivalent array — one dense matmul per product (the
     sparse formats are pathological on fully dense patterns).  COO
     triples go through the sparse front door
-    (:func:`pykrylov_tpu.sparse.sparse_operator`, Pallas kernels on
-    TPU); ``fmt`` passes through there (or force ``fmt="dense"`` to
+    (:func:`pykrylov_tpu.sparse.sparse_operator`); ``fmt`` passes through there (or force ``fmt="dense"`` to
     densify small triples).
 
     The returned operator carries ``m_complex``/``n_complex``
@@ -192,8 +188,7 @@ def real_equivalent_operator(source, hermitian=False, fmt="auto",
 
 def complex_solve(solver, A, b, *, x0=None, **kwargs):
     """Solve a complex system/least-squares problem with a REAL solver
-    on the real-equivalent formulation — the path that runs complex
-    problems on TPU hardware.
+    on the real-equivalent formulation.
 
     Parameters
     ----------
@@ -212,8 +207,7 @@ def complex_solve(solver, A, b, *, x0=None, **kwargs):
         packed space (e.g. a Jacobi diagonal repeated twice).
 
     Returns the solver's :class:`SolveResult` with ``x`` replaced by
-    the UNPACKED complex solution (host-side NumPy array — complex
-    dtypes cannot live on the TPU device).  Norm fields
+    the UNPACKED complex solution (host-side NumPy array).  Norm fields
     (``resid_norm``, ``resid_norm0``, histories) are exact complex
     residual norms by the packing isometry.  ``n_matvec`` counts
     real-equivalent products — each is the same work as one complex

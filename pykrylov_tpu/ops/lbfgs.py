@@ -1,6 +1,6 @@
 """Limited-memory BFGS operators.
 
-TPU-native re-design of the reference L-BFGS operator family
+JAX-native re-design of the reference L-BFGS operator family
 (``/root/reference/pykrylov/linop/lbfgs.py``).  The reference mutates NumPy
 ring buffers in place; here the pair history is an immutable
 :class:`LBFGSData` pytree (fixed-size ``(mem, n)`` buffers + insertion
@@ -251,8 +251,12 @@ def compact_lbfgs_matvec(data: LBFGSData, v, scaling: bool = True):
     ys = data.ys[order]
 
     theta = 1.0 / data.gamma if scaling else jnp.asarray(1.0, v.dtype)
-    StS = S @ S.T              # (mem, mem)
-    StY = S @ Y.T
+    # HIGHEST: f32 products must not drop to TF32 on GPUs that offer it
+    def mm(a, b):
+        return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+    StS = mm(S, S.T)           # (mem, mem)
+    StY = mm(S, Y.T)
     idx_i = jnp.arange(mem)[:, None]
     idx_j = jnp.arange(mem)[None, :]
     L = jnp.where(idx_i > idx_j, StY, 0.0)          # strictly lower part of S^T Y
@@ -261,9 +265,9 @@ def compact_lbfgs_matvec(data: LBFGSData, v, scaling: bool = True):
     mask2 = jnp.concatenate([valid, valid])
     Wm = jnp.where(mask2[:, None] & mask2[None, :], W,
                    jnp.eye(2 * mem, dtype=W.dtype))
-    rhs = jnp.concatenate([theta * (S @ v), Y @ v]) * mask2
+    rhs = jnp.concatenate([theta * mm(S, v), mm(Y, v)]) * mask2
     coef = jnp.linalg.solve(Wm, rhs) * mask2
-    corr = theta * (S.T @ coef[:mem]) + Y.T @ coef[mem:]
+    corr = theta * mm(S.T, coef[:mem]) + mm(Y.T, coef[mem:])
     return theta * v - corr
 
 

@@ -1,7 +1,7 @@
 """Multi-chip parallelism: meshes, sharded operators, halo exchange.
 
 The reference is a single-process library with no distributed backend
-(SURVEY §2.5); its scaling story is "matrix-free closures".  The TPU-native
+(SURVEY §2.5); its scaling story is "matrix-free closures".  The device-native
 equivalent (SURVEY §7 stage 7) is 1-D row-block partitioning of the system
 over a ``jax.sharding.Mesh``:
 
@@ -26,7 +26,6 @@ from .sharded import (shard_vector, replicate, shard_operator,
 from .halo import HaloDiaOperator
 from .stencil import HaloStencilPoisson3DOperator
 from .gather import GatherEllOperator, build_gather_schedule
-from .bell_sharded import GatherBellOperator
 from .tall import TallSkinnyOperator
 from .halo2d import (Halo2DPoissonOperator, make_mesh2d, shard_vector_2d,
                      to_bricks, from_bricks)
@@ -38,7 +37,6 @@ __all__ = [
     "shard_vector", "replicate", "shard_operator", "sharded_poisson3d",
     "HaloDiaOperator", "HaloStencilPoisson3DOperator",
     "GatherEllOperator", "build_gather_schedule",
-    "GatherBellOperator",
     "Halo2DPoissonOperator", "make_mesh2d", "shard_vector_2d",
     "to_bricks", "from_bricks",
 ]

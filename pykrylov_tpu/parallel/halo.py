@@ -5,8 +5,8 @@ is stored in DIA format, row-block partitioned: device k owns rows
 ``[k·L, (k+1)·L)`` of every diagonal and the matching block of x.  A matvec
 needs only ``w = max|offset|`` boundary entries of x from each neighbor, so
 instead of the generic all-gather this operator exchanges two width-w halo
-slices via ``jax.lax.ppermute`` — nearest-neighbor traffic that rides ICI
-ring links — then computes the local shifted-axpy stencil entirely
+slices via ``jax.lax.ppermute`` — nearest-neighbor traffic between
+adjacent devices — then computes the local shifted-axpy stencil entirely
 on-device.  Communication volume per step: 2·w·sizeof(dtype) per device,
 independent of problem size.
 
@@ -73,47 +73,6 @@ def _halo_mm_factory(offsets, axis, n_dev, mesh):
 
 
 @functools.lru_cache(maxsize=None)
-def _halo_mm_pallas_factory(offsets, axis, n_dev, mesh, w, L, m_loc,
-                            block, interpret):
-    """Block-product twin of the Pallas local path: the halo exchange
-    ships (w, K) slices and the fused DIA SpMM ring kernel streams the
-    local diagonal blocks ONCE for all K columns (the XLA shifted-axpy
-    block product runs at the same ~72-110 GB/s its matvec sibling
-    measured — probe_dia_crossover)."""
-    from ..sparse.kernels import _dia_matmat_call
-
-    fwd_perm = [(i, (i + 1) % n_dev) for i in range(n_dev)]
-    bwd_perm = [(i, (i - 1) % n_dev) for i in range(n_dev)]
-
-    def local_mm(data3_blk, X_blk):
-        K = X_blk.shape[1]
-        idx = jax.lax.axis_index(axis)
-        if w > 0:
-            left = jax.lax.ppermute(X_blk[-w:, :], axis, perm=fwd_perm)
-            right = jax.lax.ppermute(X_blk[:w, :], axis, perm=bwd_perm)
-            left = jnp.where(idx == 0, jnp.zeros_like(left), left)
-            right = jnp.where(idx == n_dev - 1, jnp.zeros_like(right),
-                              right)
-            Xp = jnp.concatenate([left, X_blk, right], axis=0)
-        else:
-            Xp = X_blk
-        Xe = jnp.zeros((m_loc, K), Xp.dtype).at[:Xp.shape[0], :].set(Xp)
-        Y = _dia_matmat_call(data3_blk[:, 0], Xe, offsets, block,
-                             interpret)
-        return Y[w:w + L, :]
-
-    mapped = shard_map(local_mm, mesh=mesh,
-                       in_specs=(P(None, axis, None, None),
-                                 P(axis, None)),
-                       out_specs=P(axis, None), check_vma=False)
-
-    def mm(params, X):
-        return mapped(params, X)
-
-    return mm
-
-
-@functools.lru_cache(maxsize=None)
 def _halo_matmat_factory(offsets, axis, n_dev):
     """Per-shard block product: halo exchange + local shifted axpys on
     an (L, K) block."""
@@ -141,51 +100,6 @@ def _halo_matmat_factory(offsets, axis, n_dev):
         return Y
 
     return local_mm
-
-
-@functools.lru_cache(maxsize=None)
-def _halo_mv_pallas_factory(offsets, axis, n_dev, mesh, w, L, m_loc,
-                            block, interpret):
-    """Pallas-kernel local path (round 4): the XLA shifted-slice local
-    stencil streams at ~187 GB/s end to end (measured on-chip, ROADMAP
-    "Sharded halo-CG") while the ring-buffered DIA kernel streams at
-    ~675 — so the local compute inside the shard_map is routed through
-    :func:`~pykrylov_tpu.sparse.kernels._dia_matvec_call` on the
-    halo-extended local vector.  Per-shard data arrives pre-packed as
-    (ndiag, 1, m_loc/128, 128); rows [0, w) and [w+L, m_loc) of the
-    extended system are zero, so the kernel's own zero boundary
-    handling is exact and the local result is rows [w, w+L)."""
-    from ..sparse.kernels import _dia_matvec_call
-
-    fwd_perm = [(i, (i + 1) % n_dev) for i in range(n_dev)]
-    bwd_perm = [(i, (i - 1) % n_dev) for i in range(n_dev)]
-
-    def local_mv(data3_blk, x_blk):
-        idx = jax.lax.axis_index(axis)
-        if w > 0:
-            left = jax.lax.ppermute(x_blk[-w:], axis, perm=fwd_perm)
-            right = jax.lax.ppermute(x_blk[:w], axis, perm=bwd_perm)
-            left = jnp.where(idx == 0, jnp.zeros_like(left), left)
-            right = jnp.where(idx == n_dev - 1, jnp.zeros_like(right),
-                              right)
-            xp = jnp.concatenate([left, x_blk, right])
-        else:
-            xp = x_blk
-        xe = jnp.zeros(m_loc, xp.dtype).at[:xp.shape[0]].set(xp)
-        y = _dia_matvec_call(data3_blk[:, 0], xe, offsets, block,
-                             interpret)
-        return y[w:w + L]
-
-    # check_vma=False: pallas_call inside shard_map cannot annotate its
-    # output's mesh-variance (same as the GatherBell wrappers)
-    mapped = shard_map(local_mv, mesh=mesh,
-                       in_specs=(P(None, axis, None, None), P(axis)),
-                       out_specs=P(axis), check_vma=False)
-
-    def mv(params, x):
-        return mapped(params, x)
-
-    return mv
 
 
 @functools.lru_cache(maxsize=None)
@@ -223,19 +137,16 @@ def _halo_matvec_factory(offsets, axis, n_dev):
 
 
 @functools.lru_cache(maxsize=None)
-def _halo_ff_factory(offsets, axis, n_dev, mesh, packed, w_k=0, L_k=0,
-                     m_loc=0):
+def _halo_ff_factory(offsets, axis, n_dev, mesh):
     """Compensated (double-f32) halo matvec ``(params, xh, xl) ->
     (yh, yl)`` — full-strength verified certificates on sharded
-    systems (VERDICT r4 #3): TwoProd/TwoSum shifted-slice local
+    systems: TwoProd/TwoSum shifted-slice local
     product with the (hi, lo) halo slices riding ONE stacked ppermute
     per direction.  Downstream dot products on the (hi, lo) parts are
     plain sharded reductions (GSPMD psum) — exact in the compensated
     PRODUCTS, eps-of-the-norm in the final reduction, which is what
     the certificate needs (the plain f32 matvec floors at
-    ~eps·|A||x|, far above).  ``packed=True`` reads the flat local
-    diagonals out of the Pallas-path (ndiag, 1, m_loc/128, 128)
-    storage (rows live at [w, w+L))."""
+    ~eps·|A||x|, far above)."""
     from ..utils.ff import two_prod, two_sum
 
     w = max((abs(o) for o in offsets), default=0)
@@ -243,10 +154,6 @@ def _halo_ff_factory(offsets, axis, n_dev, mesh, packed, w_k=0, L_k=0,
     bwd_perm = [(i, (i - 1) % n_dev) for i in range(n_dev)]
 
     def local_ff(data_blk, xh_blk, xl_blk):
-        if packed:
-            ndiag = data_blk.shape[0]
-            data_blk = data_blk[:, 0].reshape(ndiag, m_loc)[
-                :, w_k:w_k + L_k]
         L = xh_blk.shape[0]
         idx = jax.lax.axis_index(axis)
         if w > 0:
@@ -273,9 +180,8 @@ def _halo_ff_factory(offsets, axis, n_dev, mesh, packed, w_k=0, L_k=0,
             yh, yl = two_sum(s, yl + e + pe)
         return yh, yl
 
-    in_data = P(None, axis, None, None) if packed else P(None, axis)
     mapped = shard_map(local_ff, mesh=mesh,
-                      in_specs=(in_data, P(axis), P(axis)),
+                      in_specs=(P(None, axis), P(axis), P(axis)),
                       out_specs=(P(axis), P(axis)))
 
     def ff(params, xh, xl):
@@ -300,8 +206,7 @@ class HaloDiaOperator(LinearOperator):
     container explicitly otherwise.
     """
 
-    def __init__(self, dia: F.DIA, mesh, axis=ROW_AXIS, kernel="auto",
-                 **kwargs):
+    def __init__(self, dia: F.DIA, mesh, axis=ROW_AXIS, **kwargs):
         m, n = dia.shape
         if m != n:
             raise ValueError("HaloDiaOperator expects a square operator")
@@ -321,57 +226,12 @@ class HaloDiaOperator(LinearOperator):
         data = np.zeros((dia.data.shape[0], mp), dtype=dia.data.dtype)
         data[:, :m] = np.asarray(dia.data)
         offsets_t = tuple(int(o) for o in dia.offsets)
-
-        # Local-compute path selection (round 4): the XLA shifted-slice
-        # stencil streams at ~187 GB/s end to end inside a CG iteration
-        # (measured, SCALING_r04 real_mesh.model_fit) vs ~675 GB/s for
-        # the ring-buffered Pallas DIA kernel — large shards route the
-        # local matvec through the kernel on the halo-extended local
-        # block.  ``kernel=`` True/False forces it; "auto" requires the
-        # TPU backend and shards big enough to amortize the pallas_call.
-        use_kernel = (kernel is True
-                      or (kernel == "auto"
-                          and jax.default_backend() == "tpu"
-                          and L >= (1 << 16)))
-        block = None
-        if use_kernel:
-            from ..sparse.kernels import choose_block
-            ndiag = data.shape[0]
-            try:
-                block = choose_block(ndiag, offsets_t,
-                                     itemsize=data.dtype.itemsize,
-                                     m=L + 2 * w)
-            except ValueError:
-                # bandwidth exceeds every supported kernel block (e.g.
-                # |offset| >= 262144): "auto" degrades to the XLA path
-                # the operator always supported; an explicit
-                # kernel=True keeps the loud failure
-                if kernel is True:
-                    raise
-                use_kernel = False
-        if use_kernel:
-            ext = L + 2 * w
-            m_loc = -(-ext // block) * block
-            d3 = np.zeros((ndiag, n_dev, m_loc), dtype=data.dtype)
-            for k in range(n_dev):
-                d3[:, k, w:w + L] = data[:, k * L:(k + 1) * L]
-            d3 = d3.reshape(ndiag, n_dev, m_loc // 128, 128)
-            sh3 = NamedSharding(mesh, P(None, axis, None, None))
-            data3 = jax.device_put(jnp.asarray(d3), sh3)
-            interpret = jax.default_backend() != "tpu"
-            mv = _halo_mv_pallas_factory(offsets_t, axis, n_dev, mesh,
-                                         w, L, m_loc, block, interpret)
-            mm = _halo_mm_pallas_factory(offsets_t, axis, n_dev, mesh,
-                                         w, L, m_loc, block, interpret)
-            params = data3
-            ff = _halo_ff_factory(offsets_t, axis, n_dev, mesh, True,
-                                  w, L, m_loc)
-        else:
-            mv = _halo_mv_factory(offsets_t, axis, n_dev, mesh)
-            mm = _halo_mm_factory(offsets_t, axis, n_dev, mesh)
-            params = jax.device_put(jnp.asarray(data),
-                                    NamedSharding(mesh, P(None, axis)))
-            ff = _halo_ff_factory(offsets_t, axis, n_dev, mesh, False)
+        mv = _halo_mv_factory(offsets_t, axis, n_dev, mesh)
+        mm = _halo_mm_factory(offsets_t, axis, n_dev, mesh)
+        # host array straight to its shards: nothing lands whole on
+        # the first device
+        params = jax.device_put(data, NamedSharding(mesh, P(None, axis)))
+        ff = _halo_ff_factory(offsets_t, axis, n_dev, mesh)
         from ..solvers.ffmv import register_ff_matvec
         register_ff_matvec(mv, ff)
 
@@ -386,13 +246,10 @@ class HaloDiaOperator(LinearOperator):
         self.mesh = mesh
         self.offsets = dia.offsets
         self.halo_width = w
-        self.local_kernel = bool(use_kernel)
 
     @property
     def container(self):
-        """The sharded diagonal storage: the flat (ndiag, m) array on
-        the XLA path, the packed (ndiag, n_dev, m_loc/128, 128) array
-        on the kernel path (``self.local_kernel``)."""
+        """The sharded (ndiag, m + pad) diagonal storage."""
         return self._params
 
 

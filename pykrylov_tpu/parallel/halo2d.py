@@ -19,7 +19,7 @@ and norms/dots are permutation-invariant, so solvers run unchanged and
 XLA still inserts the psum reductions over both mesh axes.
 
 Reference scope note: the reference has no distributed operators at all
-(SURVEY §5); this is TPU-native surface, the mesh analogue of its
+(SURVEY §5); this is JAX-native surface, the mesh analogue of its
 gallery Poisson operators (``pykrylov/gallery``-equivalent).
 """
 

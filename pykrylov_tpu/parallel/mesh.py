@@ -1,9 +1,10 @@
 """Device-mesh construction helpers.
 
 Thin wrappers over ``jax.make_mesh`` fixing this library's axis convention:
-the system's row dimension is sharded over the ``"rows"`` axis.  On a TPU
-slice the mesh rides ICI; across hosts, ``jax.distributed.initialize`` makes
-all devices visible and the same calls produce a DCN-spanning mesh.
+the system's row dimension is sharded over the ``"rows"`` axis.  The cards
+of one host are joined all to all by NVLink, so a 1-D ``rows`` mesh loses
+nothing to topology; across hosts, ``jax.distributed.initialize`` makes all
+devices visible and the same calls produce a mesh spanning the hosts.
 """
 
 from __future__ import annotations
@@ -16,28 +17,26 @@ __all__ = ["make_mesh", "default_mesh", "device_mesh_info",
 
 ROW_AXIS = "rows"
 
-# environment hints that indicate a real multi-process launch (the
-# standard jax.distributed auto-detect sources, plus explicit overrides)
-_MULTIHOST_ENV = ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
-                  "MEGASCALE_COORDINATOR_ADDRESS", "CLOUD_TPU_TASK_ID",
-                  "TPU_WORKER_HOSTNAMES")
+# environment hints that indicate a real multi-process launch
+_MULTIHOST_ENV = ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS")
 
 
 def initialize_multihost(coordinator_address=None, num_processes=None,
                          process_id=None, **kwargs):
-    """Multi-host (DCN) bootstrap: ``jax.distributed.initialize`` + the
+    """Multi-host bootstrap: ``jax.distributed.initialize`` + the
     post-init device summary.
 
-    The reference is single-process (SURVEY §2.5); the TPU-native
+    The reference is single-process (SURVEY §2.5); the device-native
     equivalent is one JAX process per host with all devices globally
     visible, after which the SAME ``make_mesh``/solver code produces a
-    DCN-spanning mesh and XLA routes collectives over ICI within a slice
-    and DCN across hosts.  Call this once at startup on every host.
+    mesh spanning the hosts and XLA hands the collectives to NCCL.  Call
+    this once at startup on every host.
 
-    Explicit arguments are forwarded verbatim.  With no arguments the
-    call relies on jax.distributed's environment auto-detection (TPU VM
-    metadata, coordinator env vars) and degrades to a documented no-op
-    on a plain single-process launch — so driver scripts can call it
+    Explicit arguments are forwarded verbatim: give
+    ``coordinator_address`` (``host:port``), ``num_processes`` and
+    ``process_id``.  With no arguments the call initializes only when a
+    coordinator variable is set, and degrades to a documented no-op on a
+    plain single-process launch — so driver scripts can call it
     unconditionally.  Idempotent.
     """
     import os
@@ -61,8 +60,8 @@ def initialize_multihost(coordinator_address=None, num_processes=None,
                 raise
         except ValueError:
             # env hinted at multi-host but auto-detection could not
-            # resolve a coordinator (e.g. a lone TPU VM exposing cloud
-            # metadata): a single-process launch, not an error
+            # resolve a coordinator: a single-process launch, not an
+            # error
             if explicit:
                 raise
     info = device_mesh_info(default_mesh())

@@ -61,8 +61,8 @@ def _shard_ell(ell: F.ELL, mesh, axis) -> F.ELL:
     data[:m] = np.asarray(ell.data)
     cols[:m] = np.asarray(ell.cols)
     sh = NamedSharding(mesh, P(axis, None))
-    return F.ELL(jax.device_put(jnp.asarray(data), sh),
-                 jax.device_put(jnp.asarray(cols), sh), (mp, n))
+    return F.ELL(jax.device_put(data, sh),
+                 jax.device_put(cols, sh), (mp, n))
 
 
 def _shard_dia(dia: F.DIA, mesh, axis) -> F.DIA:
@@ -72,7 +72,7 @@ def _shard_dia(dia: F.DIA, mesh, axis) -> F.DIA:
     data = np.zeros((dia.data.shape[0], mp), dtype=dia.data.dtype)
     data[:, :m] = np.asarray(dia.data)
     sh = NamedSharding(mesh, P(None, axis))
-    return F.DIA(jax.device_put(jnp.asarray(data), sh), dia.offsets, (mp, n))
+    return F.DIA(jax.device_put(data, sh), dia.offsets, (mp, n))
 
 
 def shard_operator(op, mesh, axis=ROW_AXIS):
@@ -88,9 +88,7 @@ def shard_operator(op, mesh, axis=ROW_AXIS):
             or not isinstance(params[0], (F.ELL, F.DIA))):
         raise TypeError(
             "shard_operator expects a SparseOperator over ELL/DIA "
-            "containers; got %s (note: the TPU auto path may return a "
-            "Pallas-backed operator — build with fmt='dia'/'ell' to "
-            "shard)" % type(op).__name__)
+            "containers; got %s" % type(op).__name__)
     fwd, bwd = params
     m, n = fwd.shape
     if m != n:
@@ -127,7 +125,7 @@ def sharded_poisson3d(n, mesh, dtype=np.float64, halo=True,
     instead (fastest for this constant-coefficient class — no matrix
     traffic at all; requires the mesh extent to divide ``n``).
     """
-    from ..gallery.poisson import poisson3d_coo
+    from ..gallery.poisson import poisson3d_dia
     from .halo import HaloDiaOperator
 
     if matrix_free:
@@ -136,10 +134,8 @@ def sharded_poisson3d(n, mesh, dtype=np.float64, halo=True,
         e = shard_vector(jnp.ones(n ** 3, dtype=dtype), mesh)
         return op, op * e, e, 0
 
-    vals, rows, cols, shape = poisson3d_coo(n, dtype=dtype)
-    # Host-resident intermediate: conversions read triples on the host.
-    coo = F.coo_from_arrays(vals, rows, cols, shape, device=False)
-    dia = F.dia_from_coo(coo, device=False)
+    dia = poisson3d_dia(n, dtype=dtype)
+    shape = dia.shape
     if halo:
         op = HaloDiaOperator(dia, mesh)
         pad = op.pad
@@ -149,6 +145,6 @@ def sharded_poisson3d(n, mesh, dtype=np.float64, halo=True,
     m = shape[0]
     e = np.zeros(m + pad, dtype=dtype)
     e[:m] = 1.0
-    e = shard_vector(jnp.asarray(e), mesh)
+    e = shard_vector(e, mesh)
     b = op * e
     return op, b, e, pad

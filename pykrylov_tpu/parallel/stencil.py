@@ -1,9 +1,8 @@
 """Matrix-free halo-exchange 3-D Poisson operator (1-D z-slab split).
 
-Round-4 finding (ROADMAP "Halo2D kernel path"): for CONSTANT-coefficient
-stencils the fastest local compute is XLA's fused 3-D slice stencil —
-it streams zero matrix data, while the explicit-DIA paths (XLA shifted
-slices or the Pallas kernel) read ``ndiag·m`` values per matvec.  This
+For CONSTANT-coefficient stencils the cheapest local compute is XLA's
+fused 3-D slice stencil — it streams zero matrix data, while the
+explicit-DIA path reads ``ndiag·m`` values per matvec.  This
 operator is the speed-of-light option for the gallery Poisson class:
 the 7-point stencil applied to the local ``(n/R, n, n)`` slab with two
 ``ppermute``'d z-faces, no stored matrix at all.
@@ -94,8 +93,8 @@ class HaloStencilPoisson3DOperator(LinearOperator):
     extent).  ``scale`` multiplies the [6, -1x6] stencil, matching
     ``gallery.poisson3d_matvec`` at 1.0.  Zero stored matrix: per
     matvec the only HBM traffic is the vectors themselves, ~40% less
-    than the explicit-DIA halo paths — measured the fastest per-iter
-    CG vehicle for this class (ROADMAP round 4).
+    than the explicit-DIA halo path (from the byte counts; not measured
+    on the GPU).
     """
 
     def __init__(self, n, mesh, scale=1.0, axis=ROW_AXIS,
@@ -114,7 +113,6 @@ class HaloStencilPoisson3DOperator(LinearOperator):
         self.grid_n = n
         self.pad = 0
         self.halo_width = n * n
-        self.local_kernel = False   # matrix-free: nothing to stream
 
 
 _register_as_linop(HaloStencilPoisson3DOperator)

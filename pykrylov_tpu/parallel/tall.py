@@ -12,7 +12,7 @@ tall-skinny decomposition instead:
   * ``A' u = Σ_i A_i' u_i`` is one local partial product + ``psum``
     over the mesh axis — the only collective per LSQR iteration.
 
-Local compute is a dense row-block matmul (MXU path; the natural
+Local compute is a dense row-block matmul (the natural
 layout for regression-type least squares) or an ELL gather/scatter for
 sparse tall systems.  Both run under ``shard_map`` so the collective
 placement is explicit, not partitioner-inferred.
@@ -43,14 +43,18 @@ from .sharded import pad_to_multiple
 
 __all__ = ["TallSkinnyOperator"]
 
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 
 @functools.lru_cache(maxsize=None)
 def _dense_tall_factory(axis, mesh):
+    # f32 products must not drop to TF32 on GPUs that offer it
     def local_fwd(a_blk, x):
-        return a_blk @ x
+        return jnp.matmul(a_blk, x, precision=_HIGHEST)
 
     def local_adj(a_blk, u_blk):
-        return jax.lax.psum(a_blk.T @ u_blk, axis)
+        return jax.lax.psum(jnp.matmul(a_blk.T, u_blk, precision=_HIGHEST),
+                            axis)
 
     fwd = shard_map(local_fwd, mesh=mesh,
                     in_specs=(P(axis, None), P()), out_specs=P(axis))
@@ -93,7 +97,8 @@ def _ell_tall_factory(axis, mesh, n):
 
     def local_fwd2(data_blk, cols_blk, X):
         # (Lm, w) gather against (n, K): one fused gather per block
-        return jnp.einsum("rw,rwk->rk", data_blk, X[cols_blk])
+        return jnp.einsum("rw,rwk->rk", data_blk, X[cols_blk],
+                          precision=_HIGHEST)
 
     def local_adj2(data_blk, cols_blk, U_blk):
         prods = data_blk[:, :, None] * U_blk[:, None, :]  # (Lm, w, K)
@@ -136,8 +141,8 @@ class TallSkinnyOperator(LinearOperator):
 
     Parameters
     ----------
-    source : dense (m, n) array (row-block matmul local compute, MXU
-        path), or a rectangular ELL/COO container (gather/scatter local
+    source : dense (m, n) array (row-block matmul local compute),
+        or a rectangular ELL/COO container (gather/scatter local
         compute).  Pass HOST-resident containers/arrays (``device=False``
         / NumPy): construction reads them on the host.
     mesh : 1-D ``jax.sharding.Mesh``; rows are blocked over ``axis``.
@@ -163,8 +168,8 @@ class TallSkinnyOperator(LinearOperator):
             data[:m] = np.asarray(source.data)
             cols[:m] = np.asarray(source.cols)
             sh = NamedSharding(mesh, P(axis, None))
-            params = (jax.device_put(jnp.asarray(data), sh),
-                      jax.device_put(jnp.asarray(cols), sh))
+            params = (jax.device_put(data, sh),
+                      jax.device_put(cols, sh))
             mv, mv_t, mm, mm_t = _ell_tall_factory(axis, mesh, int(n))
             dtype = data.dtype
         else:
@@ -177,7 +182,7 @@ class TallSkinnyOperator(LinearOperator):
             ap = np.zeros((mp, n), dtype=a.dtype)
             ap[:m] = a
             sh = NamedSharding(mesh, P(axis, None))
-            params = (jax.device_put(jnp.asarray(ap), sh),)
+            params = (jax.device_put(ap, sh),)
             mv, mv_t, mm, mm_t = _dense_tall_factory(axis, mesh)
             dtype = a.dtype
 

@@ -44,28 +44,6 @@ _METHODS = ("cg", "cg_pipelined", "minres", "symmlq", "bicgstab", "cgs",
             "tfqmr", "lsqr", "lsmr", "craig", "craigmr")
 
 
-def _permute_precon(M, p, ip):
-    """Transform a preconditioner into the permuted solve space:
-    ``M' = P M P^T``.  Diagonal preconditioners permute their diagonal
-    (no per-apply gathers); general operators wrap with two takes per
-    apply — still half the gathers the untransformed solve paid."""
-    from .ops import DiagonalOperator
-    M = as_operator(M)
-    if isinstance(M, DiagonalOperator):
-        return DiagonalOperator(M.diag[p])
-    from .ops.base import LinearOperator
-
-    def mv(params, v):
-        pp, ipp, inner_m = params
-        return apply_op(inner_m, v[ipp])[pp]
-
-    return LinearOperator(M.shape[1], M.shape[0], matvec=mv,
-                          matvec_transp=mv if M.symmetric else None,
-                          params=(p, ip, M), _takes_params=True,
-                          symmetric=M.symmetric, hermitian=M.hermitian,
-                          dtype=M.dtype)
-
-
 def _concrete_istop(res):
     """The stop code as a host int, or None when it is a tracer (inside
     jit/vmap, where fallback dispatch is impossible)."""
@@ -114,29 +92,6 @@ def solve(A, b, method=None, verified=False, **opts):
     """
     A = as_operator(A)
     b_arr = jnp.asarray(b)
-    perm = getattr(A, "solve_permutation", None)
-    if perm is not None:
-        # Similarity-transformed solve (RCM-wrapped operators): the
-        # operator's per-matvec permutation gathers are XLA-gather-
-        # dominated (measured ~1 ms per O(131k) take on-chip), but for
-        # a SOLVE they can be hoisted entirely: A = P^T A' P, so solve
-        # A' x' = P b in the permuted space (the wrapped Pallas kernel
-        # applies directly) and un-permute x once.  Residual norms,
-        # histories and iteration counts are invariant (P orthogonal).
-        p, ip, inner = perm
-        bp = b_arr[p] if b_arr.ndim == 1 else b_arr[p, :]
-        popts = dict(opts)
-        if popts.get("x0") is not None:
-            x0 = jnp.asarray(popts["x0"])
-            popts["x0"] = x0[p] if x0.ndim == 1 else x0[p, :]
-        M = popts.get("M")
-        if M is not None:
-            popts["M"] = _permute_precon(M, p, ip)
-        res = solve(inner, bp, method=method, verified=verified,
-                    **popts)
-        x = res.x[ip] if res.x.ndim == 1 else res.x[ip, :]
-        import dataclasses as _dc
-        return _dc.replace(res, x=x)
     if b_arr.ndim == 2:
         return _solve_block(A, b_arr, method, verified, opts)
     if method is not None:
@@ -216,7 +171,7 @@ def _solve_block(A, B, method, verified, opts):
     if verified:
         # Verified blocks ride cg_batched's residual-replacement mode:
         # per-column double-f32 carries, per-column stops on recomputed
-        # TRUE residuals (VERDICT r3 #3).  Only the CG recurrence has a
+        # TRUE residuals.  Only the CG recurrence has a
         # verified block twin so far.
         sym = A.symmetric or A.hermitian
         if (method in (None, "cg")) and sym and A.shape[0] == A.shape[1]:

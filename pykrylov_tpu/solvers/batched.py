@@ -2,13 +2,13 @@
 CGS / TFQMR / LSQR + a generic column driver.
 
 The reference solves one RHS per call (its solvers hold a single
-``self.x``; ``generic/generic.py:79-87``).  On TPU that leaves the
+``self.x``; ``generic/generic.py:79-87``).  On a device that leaves the
 dominant cost — streaming the operator out of HBM — unamortized: an
 HBM-bound SpMV moves ``A_bytes + x_bytes + y_bytes`` per product, so
 solving K systems one by one streams A K times.  ``cg_batched`` runs
 one fused ``lax.while_loop`` over an (n, K) block iterate instead: each
 iteration applies the operator to ALL K direction columns (one
-traced block product — a matmul on the MXU for dense operators, a
+traced block product — a matmul for dense operators, a
 K-column gather/segment product for sparse formats), turning K solves
 into ``A_bytes + K·(x+y)_bytes`` of traffic per iteration and a single
 device program for the whole family.
@@ -60,11 +60,9 @@ from .lsqr import ISTOP_MSG as ISTOP_MSG_LSQR  # noqa: E402
 
 def _apply_block(op, X):
     """Block product ``A @ X`` on an (n, K) column block: the operator's
-    native SpMM rule when it has one (pallas operators stream A ONCE for
-    all K columns — vmapping their matvec re-streams per column and
-    defeats the manual DMA rings, measured ~1000x slower, ROADMAP
-    'Batched solvers'), trace-time vmap otherwise (XLA fuses it into one
-    dot_general for dense operators)."""
+    native SpMM rule when it has one (the sharded operators ship (w, K)
+    halo slices once for all K columns), trace-time vmap otherwise (XLA
+    fuses it into one dot_general for dense operators)."""
     mm = getattr(op, "_mm", None)
     if mm is not None:
         return op.apply_with(mm, X)

@@ -1,6 +1,6 @@
 """Bi-CGSTAB as a fused ``lax.while_loop``.
 
-TPU-native redesign of the reference Bi-CGSTAB
+JAX-native redesign of the reference Bi-CGSTAB
 (``/root/reference/pykrylov/bicgstab/bicgstab.py:9-151``, Van der Vorst '92
 in Kelley's preconditioned form).  The reference runs a host loop with 2
 matvecs, 6 dots and 6 axpys per iteration and can exit *mid-iteration* when

@@ -1,6 +1,6 @@
 """Preconditioned conjugate gradients as a fused ``lax.while_loop``.
 
-TPU-native redesign of the reference CG (``/root/reference/pykrylov/cg/
+JAX-native redesign of the reference CG (``/root/reference/pykrylov/cg/
 cg.py:9-165``).  The reference runs a host Python loop with one matvec, two
 dots and three axpys per iteration and checks scalars on the host every
 pass; here the whole iteration is one jit-compiled ``lax.while_loop`` with
@@ -278,7 +278,7 @@ def cg(A, b, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8, maxiter=None,
         this period: the true residual ``b - A x`` is recomputed every
         ``replace_every`` iterations and whenever the recurrence claims
         convergence, so the stopping test is verified against the true
-        residual.  This is the f32-on-TPU parity knob: the reference
+        residual.  This is the f32 parity knob: the reference
         runs f64 where the recurrence drift is invisible at its
         tolerances; in f32 the drift makes unverified convergence
         meaningless for ill-conditioned systems (e.g. 1138bus at rtol

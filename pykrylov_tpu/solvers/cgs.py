@@ -1,6 +1,6 @@
 """Conjugate Gradient Squared (CGS) as a fused ``lax.while_loop``.
 
-TPU-native redesign of the reference CGS
+JAX-native redesign of the reference CGS
 (``/root/reference/pykrylov/cgs/cgs.py:8-123``, Sonneveld '89).  Two matvecs
 with A, three dots, seven axpys per iteration, no adjoint products.  The
 host loop becomes one ``lax.while_loop`` whose convergence predicate runs on

@@ -1,6 +1,6 @@
 """CRAIG (generalized, Arioli & Orban) as a fused ``lax.while_loop``.
 
-TPU-native redesign of the reference CRAIG
+JAX-native redesign of the reference CRAIG
 (``/root/reference/pykrylov/lls/craig.py:30-520``).  Solves consistent
 ``Ax = b`` / the regularized problem ``min ||b - Ax||^2_D + ||x||^2_N``,
 equivalently the symmetric quasi-definite (SQD) system

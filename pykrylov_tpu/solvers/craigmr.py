@@ -1,6 +1,6 @@
 """CRAIG-MR (least-norm minimum-residual) as a fused ``lax.while_loop``.
 
-TPU-native redesign of the reference CRAIG-MR
+JAX-native redesign of the reference CRAIG-MR
 (``/root/reference/pykrylov/lls/craigmr.py:13-250``): a minimum-residual
 variant of CRAIG for least-norm problems, driven by the same Golub-Kahan
 bidiagonalization with rotations of types I, II and III

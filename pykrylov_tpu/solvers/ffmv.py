@@ -1,7 +1,7 @@
 """Compensated (double-f32) matvec resolution shared by the verified
 solver paths.
 
-f64 on TPU is emulated (~100x); the verified-convergence machinery
+Verified convergence in an f32 solve: the machinery
 (ff-CG's ``replace_every``, :func:`~pykrylov_tpu.solvers.refine.
 refined_solve`, the ``verify_final`` certificates) instead evaluates
 true residuals with an error-compensated matvec when the operator's
@@ -104,10 +104,7 @@ def resolve_ff_matmat(A):
 
     Implemented as a trace-time ``vmap`` of the compensated matvec over
     columns — safe here because all compensated storages (ELL, dense,
-    the registered sharded XLA paths) are XLA-level code (the ~1000x
-    vmap pathology is specific to the manual-DMA Pallas kernels, which
-    have no compensated path and return ``None`` from the resolver
-    anyway).  The verified batched path therefore streams A's data per
+    the registered sharded XLA paths) are XLA-level code.  The verified batched path therefore streams A's data per
     column; it trades the SpMM amortization for the certificate."""
     reg = _MV_REGISTRY.get(getattr(A, "_mv", None))
     if reg is not None:

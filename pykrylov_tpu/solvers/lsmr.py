@@ -1,6 +1,6 @@
 """LSMR (Fong & Saunders) as a fused ``lax.while_loop``.
 
-TPU-native redesign of the reference LSMR
+JAX-native redesign of the reference LSMR
 (``/root/reference/pykrylov/lls/lsmr.py:28-492``, after
 arxiv.org/abs/1006.0758).  Solves ``Ax = b`` / ``min ||Ax - b||`` /
 the damped problem for rectangular A; same Golub-Kahan bidiagonalization

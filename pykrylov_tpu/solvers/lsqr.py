@@ -1,6 +1,6 @@
 """LSQR (Paige & Saunders) as a fused ``lax.while_loop``.
 
-TPU-native redesign of the reference LSQR
+JAX-native redesign of the reference LSQR
 (``/root/reference/pykrylov/lls/lsqr.py:26-454``).  Solves ``Ax = b``,
 ``min ||Ax - b||`` or the damped problem ``min ||Ax-b||^2 + damp^2 ||x||^2``
 for rectangular A via Golub-Kahan bidiagonalization + QR by plane

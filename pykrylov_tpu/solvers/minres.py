@@ -1,6 +1,6 @@
 """MINRES (Paige & Saunders) as a fused ``lax.while_loop``.
 
-TPU-native redesign of the reference MINRES
+JAX-native redesign of the reference MINRES
 (``/root/reference/pykrylov/minres/minres.py:23-410``, itself a translation
 of the Stanford SOL MATLAB code).  Symmetric, possibly indefinite or
 singular systems ``(A - shift I) x = b``, also usable for ``min ||Ax-b||``.

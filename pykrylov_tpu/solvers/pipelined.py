@@ -1,6 +1,6 @@
 """Pipelined (communication-hiding) conjugate gradients.
 
-No reference counterpart — this is the TPU-native scaling variant of CG
+No reference counterpart — this is the JAX-native scaling variant of CG
 for sharded systems, after Ghysels & Vanroose's pipelined CG (see
 PAPERS.md: arXiv:1801.04728, arXiv:1706.05988, arXiv:2105.06176).
 

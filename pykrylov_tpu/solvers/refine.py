@@ -1,6 +1,6 @@
 """Verified iterative refinement around any square-system solver.
 
-The f32-on-TPU parity strategy (SURVEY §7 "compensated algorithms to
+The f32 parity strategy (SURVEY §7 "compensated algorithms to
 match residual histories") generalized beyond CG: ``refined_solve``
 wraps ANY of the square-system solvers (cg, minres, symmlq, bicgstab,
 cgs, tfqmr) in an outer refinement loop —
@@ -28,8 +28,8 @@ residual.
 
 Each leg is one fused device program (the inner solver's while_loop);
 only one scalar rides back to the host per leg for the outer control
-flow.  Through a remote transport that is ``n_legs`` round-trips —
-for a fully fused single-program verified CG use
+flow, so a solve costs ``n_legs`` host synchronisations — for a fully
+fused single-program verified CG use
 ``cg(..., replace_every=...)`` instead.
 """
 

@@ -1,6 +1,6 @@
 """SYMMLQ (Paige & Saunders) as a fused ``lax.while_loop``.
 
-TPU-native redesign of the reference SYMMLQ
+JAX-native redesign of the reference SYMMLQ
 (``/root/reference/pykrylov/symmlq/symmlq.py:17-400``).  Symmetric, possibly
 indefinite systems ``(A - shift I) x = b``; one matvec, two dots, four axpys
 per iteration (``symmlq.py:24-25``); the preconditioner must be SPD.

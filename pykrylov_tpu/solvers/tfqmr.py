@@ -1,6 +1,6 @@
 """Transpose-Free QMR (TFQMR) as a fused ``lax.while_loop``.
 
-TPU-native redesign of the reference TFQMR
+JAX-native redesign of the reference TFQMR
 (``/root/reference/pykrylov/tfqmr/tfqmr.py:7-159``, Freund '93 /
 Kelley-style).  Each outer iteration performs two half-steps; each half
 updates the quasi-residual ``residNorm *= theta * c`` and tests

@@ -1,8 +1,8 @@
 """Sparse-matrix containers as JAX pytrees.
 
-TPU-native replacement for the reference's pysparse delegation and
+JAX-native replacement for the reference's pysparse delegation and
 pure-Python COO loops (``/root/reference/pykrylov/linop/linop.py:638-685``).
-Four formats, chosen for how they map to TPU memory and vector lanes:
+Four formats, chosen for how they map to device memory and vector lanes:
 
   * :class:`COO`   — interchange format; matvec = gather + ``segment_sum``.
   * :class:`CSR`   — storage/interchange; carries precomputed ``row_ids``
@@ -11,7 +11,7 @@ Four formats, chosen for how they map to TPU memory and vector lanes:
     the matvec is K lane-aligned gathers + multiply-accumulate, no scatter.
   * :class:`DIA`   — diagonal storage for banded/stencil matrices: the
     matvec is a static sum of shifted axpys — no indices at all, the
-    speed-of-light format on TPU (HBM traffic = values + x + y).
+    speed-of-light format (HBM traffic = values + x + y).
 
 All containers are immutable pytrees (arrays as children, shape/offsets as
 static aux data) so they can be jit arguments, sharded with
@@ -224,7 +224,7 @@ def bandwidth_profile(coo: COO):
 
 
 # ---------------------------------------------------------------------------
-# Matvecs (pure XLA; Pallas fast paths live in .kernels)
+# Matvecs (pure XLA)
 # ---------------------------------------------------------------------------
 
 
@@ -252,8 +252,7 @@ def csr_rmatvec(a: CSR, x):
 
 
 def ell_matvec(a: ELL, x):
-    # (m, K) gather of x at cols, multiply, reduce over K: pure VPU work,
-    # no scatter.  K is small and static, so XLA emits one fused pass.
+    # (m, K) gather of x at cols, multiply, reduce over K: no scatter.  K is small and static, so XLA emits one fused pass.
     return jnp.sum(a.data * x[a.cols], axis=1)
 
 

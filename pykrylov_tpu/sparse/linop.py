@@ -1,6 +1,6 @@
 """Operators backed by sparse containers, with automatic format choice.
 
-This is the TPU counterpart of ``PysparseLinearOperator``
+This is the device counterpart of ``PysparseLinearOperator``
 (``/root/reference/pykrylov/linop/linop.py:688-720``): the solver-facing
 object is still a :class:`~pykrylov_tpu.ops.LinearOperator`, but its matvec
 is a device kernel over a :mod:`pykrylov_tpu.sparse.formats` container
@@ -8,7 +8,7 @@ rather than a host call into a C extension.
 
 Format policy (SURVEY §7 "hard parts"): matrices whose nonzeros live on few
 distinct diagonals (stencils, banded systems) use DIA — index-free shifted
-axpys, the fastest possible SpMV on TPU.  General sparsity uses ELL —
+axpys that XLA fuses into one streaming pass.  General sparsity uses ELL —
 padded-row gathers, no scatters.  ``sparse_operator`` picks automatically.
 """
 
@@ -21,8 +21,7 @@ from ..ops.base import LinearOperator, _register_as_linop
 from . import formats as F
 
 __all__ = ["SparseOperator", "sparse_operator", "operator_from_coo",
-           "jacobi_preconditioner", "diag_of_coo",
-           "pallas_dia_sparse_operator"]
+           "jacobi_preconditioner", "diag_of_coo"]
 
 
 def _mv_fwd(params, x):
@@ -76,188 +75,15 @@ class SparseOperator(LinearOperator):
 _register_as_linop(SparseOperator)
 
 
-def _try_bell(coo, symmetric, max_slots_per_nnz=8.0, max_nb=256,
-              max_pad_bytes=1 << 30, min_speedup_vs_ell=4.0):
-    """Build a BELL kernel operator if the packing qualifies.
-
-    The speed comparison is lopsided — the XLA ELL gather path measured
-    ~24 ns/nnz on-chip vs the kernel's ~12.5 ps/slot compute floor, so
-    BELL wins on throughput up to slots/nnz in the HUNDREDS.  The
-    binding constraints are instead:
-
-    * ``max_nb``: per-step x windows wider than ~2 K-tiles make the
-      one-hot staging matmuls dominate;
-    * no XLA scatter remainder (~16 ns/entry);
-    * storage: either the classic density budget ``max_slots_per_nnz``
-      (default 8 ≈ 5x the 8 B/nnz CSR footprint) holds, or — for
-      heavy-tailed/irregular classes that pack badly but where the XLA
-      alternative is 1-2 orders slower (power-law degree matrices
-      plan at ~29 slots/nnz yet still run ~20x faster than ELL's
-      per-nnz gathers) — the COST-BASED escape: predicted kernel time
-      beats the ELL estimate by ``min_speedup_vs_ell`` AND the total
-      packed storage (values + indices at their stored dtypes) stays
-      under ``max_pad_bytes`` of HBM.
-
-    Tries the raw ordering first, then RCM (square only).  Returns None
-    when neither packing qualifies."""
-    import numpy as _np
-    from .bell import (NB_MAX, SEG_BANDS, SpanError, _SPILL_BYTES,
-                       _pack_levels, _slot_cost_ps, bell_operator,
-                       reorder_rcm)
-
-    _ELL_NS_PER_NNZ = 24.0   # measured on-chip (ROADMAP r2)
-
-    def _ok(lv):
-        from .bell import _SLOT_COST_PS
-        remainder = sum(b.nnz_spill for b in lv)
-        if remainder != 0:
-            return False
-        for b in lv:
-            # scoped-VMEM feasibility per level: staging/product stack
-            # transients scale with GS (~10 slots of (GS, 128) f32) on
-            # top of the DMA rings; deep-GS packings compile at a
-            # shrunken ring depth but a GS=3424/nring=2 w1 config
-            # CRASHED the TPU worker at run time (round 4) — reject
-            # anything whose estimate crowds the 16 MB limit instead
-            # of generating it
-            GS = int(b.data.shape[1])
-            ring = (b.nb * 128 * 4 + GS * 128 * b.data.dtype.itemsize
-                    + int(_np.prod(b.lanes.shape[1:]))
-                    * b.lanes.dtype.itemsize)
-            if 10 * GS * 128 * 4 + 2 * ring > (15 << 20):
-                return False
-        # segmented packings stage SEG_BANDS sub-windows whatever the
-        # packing-wide nb is — their EFFECTIVE staging width is SEG_BANDS
-        nb = max((SEG_BANDS if b.seg is not None else b.nb) for b in lv)
-        nnz = max(1, sum(b.nnz for b in lv))
-        # normalize padding by per-slot kernel cost so the budget means
-        # the same predicted time whichever window mode auto picked
-        # (w1 slots are ~1.6x cheaper than w2 slots)
-        cost_ps = sum(int(_np.prod(b.data.shape)) * _SLOT_COST_PS[b.window]
-                      for b in lv)
-        if (nb <= max_nb
-                and cost_ps / (_SLOT_COST_PS[2] * nnz)
-                <= max_slots_per_nnz):
-            return True
-        # cost-based escape; MONOLITHIC wide windows (nb > max_nb) are
-        # admitted here too, with the per-level slot cost scaled by
-        # nb/256 (_slot_cost_ps) — their (nb, GS) one-hot staging
-        # undercharges the 12.5 ps/slot model roughly linearly in nb.
-        # Segmented packings keep the base cost.
-        cost_adj = sum(int(_np.prod(b.data.shape)) * _slot_cost_ps(b)
-                       for b in lv)
-        # exact packed storage (values + lane indices at their actual
-        # dtypes) — the escape caps total HBM footprint, not an 8 B/slot
-        # guess that double-charged bf16 values
-        storage_bytes = sum(
-            b.data.size * b.data.dtype.itemsize
-            + b.lanes.size * b.lanes.dtype.itemsize for b in lv)
-        return (storage_bytes <= max_pad_bytes
-                and cost_adj * 1e-12 * min_speedup_vs_ell
-                <= nnz * _ELL_NS_PER_NNZ * 1e-9)
-
-    def _plan(c):
-        # host-side candidate planning: disqualified packings must not
-        # ride the device transport (tens of MB each on a remote TPU)
-        try:
-            return _pack_levels(c, NB_MAX, _SPILL_BYTES, 2, device=False,
-                                window="auto")
-        except SpanError:
-            return None
-
-    # heavy-row split first: rows with pathological per-lane depth get
-    # private virtual blocks (see bell._row_split_plan) — measured to
-    # carry 69% of the power-law class's slots in 273 rows (round 5)
-    from .bell import _row_split_plan, _split_transpose_levels
-    split = _row_split_plan(coo)
-    if split is not None:
-        coo_k, heavy, M0 = split
-        fwd = _plan(coo_k)
-        if fwd is not None and _ok(fwd):
-            bwd = None
-            if not symmetric:
-                try:
-                    bwd = _split_transpose_levels(
-                        coo_k, M0, NB_MAX, _SPILL_BYTES, 2, "auto",
-                        "packed", True)
-                except SpanError:
-                    bwd = None
-            if symmetric or (bwd is not None and _ok(bwd[0])
-                             and _ok(bwd[1])):
-                return bell_operator(coo, symmetric=symmetric,
-                                     _prepacked=(fwd, bwd),
-                                     _split=(None, heavy, M0))
-
-    for reorder in (False, True):
-        c = coo
-        if reorder:
-            if coo.shape[0] != coo.shape[1]:
-                break
-            c, _ = reorder_rcm(coo)
-        fwd = _plan(c)
-        if fwd is None or not _ok(fwd):
-            continue
-        bwd = None if symmetric else _plan(F.transpose_coo(c))
-        if symmetric or (bwd is not None and _ok(bwd)):
-            return bell_operator(coo, symmetric=symmetric,
-                                 reorder=reorder,
-                                 _prepacked=None if reorder
-                                 else (fwd, bwd))
-        if not reorder:
-            # directions are judged independently: a matrix whose rows
-            # pack well but whose columns have heavy-tailed degrees gets
-            # the BELL kernel forward and the XLA ELL path for A^T (the
-            # direction most solvers never apply)
-            return _bell_fwd_ell_bwd(coo, fwd, symmetric)
-    return None
-
-
-def _bell_ell_rmv(params, x):
-    return F.ell_matvec(params[2], x)
-
-
-def _bell_fwd_ell_bwd(coo, fwd_levels, symmetric):
-    from ..ops.base import LinearOperator
-    from .bell import (_bell_mv_factory, _ensure_device_levels, bell_fill,
-                       bell_stream_bytes)
-
-    m, n = coo.shape
-    fwd_levels = _ensure_device_levels(fwd_levels)
-    ell_t = F.ell_from_coo(F.transpose_coo(coo), pad_to=4, device=False)
-    ell_t = F.ELL(jnp.asarray(ell_t.data), jnp.asarray(ell_t.cols),
-                  ell_t.shape)
-    cfg = tuple((b.nb, b.nblk, b.padded_shape[1], b.window)
-                for b in fwd_levels)
-    import jax as _jax
-    interpret = _jax.default_backend() != "tpu"
-    mv = _bell_mv_factory(0, cfg, m, interpret)
-    dtype = np.dtype(fwd_levels[0].data.dtype)
-    op = LinearOperator(n, m, matvec=mv, matvec_transp=_bell_ell_rmv,
-                        params=(fwd_levels, None, ell_t),
-                        _takes_params=True, symmetric=symmetric,
-                        hermitian=False, dtype=dtype)
-    nnz_tot = sum(b.nnz for b in fwd_levels)
-    op.fill = bell_fill(fwd_levels[0])
-    op.spill_frac = (nnz_tot - fwd_levels[0].nnz
-                     + fwd_levels[0].nnz_spill) / max(1, nnz_tot)
-    op.stream_bytes = sum(bell_stream_bytes(b) for b in fwd_levels)
-    op.bytes_per_nnz = op.stream_bytes / max(1, nnz_tot)
-    op.xla_remainder = sum(b.nnz_spill for b in fwd_levels)
-    op.nb_max_level = max(b.nb for b in fwd_levels)
-    return op
-
-
 def operator_from_coo(vals, rows, cols, shape, symmetric=False,
                       fmt="auto", dtype=None, dia_density_threshold=0.25,
                       max_diags=64):
     """Build a SparseOperator from COO triples, choosing a compute format.
 
-    ``fmt`` is one of ``auto | dia | pallas-dia | bell | bell-rcm | ell |
-    csr | coo``.  ``auto`` picks DIA when the nonzeros land on at most
-    ``max_diags`` distinct diagonals with at least
-    ``dia_density_threshold`` fill; other ("general") sparsity on the TPU
-    backend gets the BELL Pallas kernel when it packs efficiently
-    (:func:`_try_bell`), else the XLA ELL path.
+    ``fmt`` is one of ``auto | dia | ell | csr | coo``.  ``auto`` picks
+    DIA when the nonzeros land on at most ``max_diags`` distinct diagonals
+    with at least ``dia_density_threshold`` fill, else ELL.  Both are
+    plain XLA programs: the choice depends only on the matrix.
     """
     # Host-resident intermediate: every conversion below reads the triples
     # on the host, and device round-trips dominate construction cost.
@@ -267,28 +93,6 @@ def operator_from_coo(vals, rows, cols, shape, symmetric=False,
         ndiag, density = F.bandwidth_profile(coo)
         fmt = "dia" if (ndiag <= max_diags and
                         density >= dia_density_threshold) else "ell"
-        # On the TPU backend, large DIA-eligible matrices get the Pallas
-        # streaming kernel (the padded-block layout needs enough rows to
-        # amortize; small systems stay on the fused-XLA path).
-        import jax as _jax
-        if (fmt == "dia" and shape[0] == shape[1]
-                and shape[0] >= 1 << 16
-                and _jax.default_backend() == "tpu"):
-            return pallas_dia_sparse_operator(coo, symmetric=symmetric)
-        # General sparsity: the BELL Pallas kernel is the hot path (the
-        # reference's pysparse C SpMV, linop.py:697-706); small systems
-        # stay on XLA ELL where per-call overhead beats kernel gains.
-        if (fmt == "ell" and shape[0] >= 1 << 12
-                and _jax.default_backend() == "tpu"):
-            op = _try_bell(coo, symmetric)
-            if op is not None:
-                return op
-    if fmt in ("bell", "bell-rcm"):
-        from .bell import bell_operator
-        return bell_operator(coo, symmetric=symmetric,
-                             reorder=(fmt == "bell-rcm"))
-    if fmt == "pallas-dia":
-        return pallas_dia_sparse_operator(coo, symmetric=symmetric)
     if fmt == "dia":
         fwd = F.dia_from_coo(coo)
         bwd = None if symmetric else F.dia_from_coo(F.transpose_coo(coo))
@@ -340,11 +144,13 @@ def diag_of_coo(vals, rows, cols, n):
     return d
 
 
-def jacobi_preconditioner(source, floor=0.0):
+def jacobi_preconditioner(source, floor=0.0, dtype=None):
     """Diagonal (Jacobi) preconditioner M = diag(1/|d_i|) as an operator.
 
     Mirrors the reference benchmark's ``DiagonalPrec`` (max(|diag|, 1),
-    ``examples/bmark.py:14-23``) when ``floor=1``.
+    ``examples/bmark.py:14-23``) when ``floor=1``.  ``dtype`` sets the
+    diagonal's dtype (default: the source's, float64 for bundled
+    matrices) — pass the system's dtype to keep an f32 solve in f32.
     """
     import os
     from ..ops.base import DiagonalOperator
@@ -370,42 +176,5 @@ def jacobi_preconditioner(source, floor=0.0):
     # would make 1/d infinite and poison the first preconditioner apply;
     # act as the identity on those rows instead.
     d = np.where(d == 0, 1.0, d)
-    return DiagonalOperator(1.0 / d)
+    return DiagonalOperator((1.0 / d).astype(dtype or d.dtype))
 
-
-def pallas_dia_sparse_operator(coo, symmetric=False):
-    """DIA-format SparseOperator whose matvec is the Pallas kernel, acting
-    on the *logical* length-m vectors (pad/trim handled internally).
-
-    Used by :func:`sparse_operator` on the TPU backend for DIA-eligible
-    matrices; the padded kernel operator itself
-    (:func:`~pykrylov_tpu.sparse.kernels.pallas_dia_operator`) is exposed
-    for callers that want to manage padding (e.g. the benchmark).
-    """
-    from . import formats as F
-    from .kernels import pallas_dia_operator
-
-    m = coo.shape[0]
-    # Host-resident DIA: padding/packing below read the data on the host.
-    dia = F.dia_from_coo(coo, device=False)
-    inner = pallas_dia_operator(dia, symmetric=symmetric)
-    mp = inner.nargin
-
-    def mv(params, x):
-        (op,) = params
-        xp = jnp.zeros(mp, dtype=x.dtype).at[:m].set(x)
-        return op.apply_with(op._mv, xp)[:m]
-
-    def rmv(params, x):
-        (op,) = params
-        xp = jnp.zeros(mp, dtype=x.dtype).at[:m].set(x)
-        return op.apply_with(op._rmv, xp)[:m]
-
-    op = LinearOperator(m, m, matvec=mv,
-                        matvec_transp=rmv,
-                        params=(inner,), _takes_params=True,
-                        symmetric=symmetric,
-                        hermitian=inner.hermitian and symmetric,
-                        dtype=inner.dtype)
-    op.container = dia
-    return op

@@ -1,9 +1,9 @@
-"""Double-f32 ("float-float") compensated arithmetic on the VPU.
+"""Double-f32 ("float-float") compensated arithmetic.
 
-f64 on TPU is software-emulated (~100x); these error-free transforms
-give ~2x-f32 (49-bit mantissa) accuracy out of IEEE f32 adds/muls — the
-compensated-algorithms piece of SURVEY §7 ("match residual histories in
-f32").  Used by the verified-convergence CG path to carry the solution
+These error-free transforms give ~2x-f32 (49-bit mantissa) accuracy out
+of IEEE f32 adds/muls — the compensated-algorithms piece of SURVEY §7
+("match residual histories in f32"), for solves whose vectors stay in
+f32.  Used by the verified-convergence CG path to carry the solution
 as an (hi, lo) pair and to evaluate true residuals below the plain-f32
 matvec floor (~eps·|A||x|, measured 2.3e-6 relative on 1138bus — above
 the reference's f64 rtol 1e-6 target).
@@ -11,7 +11,9 @@ the reference's f64 rtol 1e-6 target).
 All functions are elementwise/vectorized jnp and jit-safe.  TwoSum is
 Knuth's branchless 6-flop version; TwoProd uses Dekker splitting
 (factor 2^12+1 for f32, 2^27+1 for f64 — no FMA primitive is exposed
-through XLA).
+through XLA).  Both are exact only if the compiler neither reassociates
+nor contracts ``f*a - ...`` into an FMA; ``chip_smoke.py`` (phase 7) and
+the card-marked cases of ``tests/test_ff.py`` check that on the GPU.
 References: Dekker 1971; Ogita, Rump & Oishi 2005.
 """
 
@@ -115,11 +117,11 @@ def ff_hypot(ah, al, bh, bl):
 def ff_sum(p):
     """Compensated sum of a real vector as an (hi, lo) pair.
 
-    Vectorized pairwise TwoSum tree: log2(n) VPU sweeps, each level's
+    Vectorized pairwise TwoSum tree: log2(n) vector sweeps, each level's
     rounding errors accumulated into a plain running correction (their
     own rounding is second order).  Equivalent accuracy to Ogita-Rump
     Sum2 (~2-fold working precision) at O(n) vector work with no serial
-    scan — usable inside solver loops on TPU."""
+    scan — usable inside solver loops."""
     import numpy as _np
     n = int(p.shape[0])
     if n == 0:

@@ -3,7 +3,7 @@
 The reference's only observability artifacts are matvec counters and
 residual histories (SURVEY §5); those are first-class in
 :class:`~pykrylov_tpu.solvers.SolveResult`.  This module adds the
-TPU-native extras SURVEY §5 calls for:
+JAX-native extras SURVEY §5 calls for:
 
   * :func:`trace` / :func:`profiled` — ``jax.profiler`` trace capture
     around a solve, viewable in TensorBoard/Perfetto;

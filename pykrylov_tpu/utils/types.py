@@ -1,9 +1,9 @@
 """Numeric type whitelists for operators and solvers.
 
-TPU-native re-design of the reference type tables
+JAX-native re-design of the reference type tables
 (``/root/reference/pykrylov/tools/types.py:1-16``): the reference whitelists
-NumPy dtypes up to ``float128``/``complex256``; JAX on TPU supports
-``bfloat16``/``float32`` natively and ``float64``/``complex128`` when x64 is
+NumPy dtypes up to ``float128``/``complex256``; JAX supports
+``bfloat16``/``float32`` always and ``float64``/``complex128`` when x64 is
 enabled, so the tables are built from what the active JAX build exposes.
 """
 

@@ -1,8 +1,8 @@
 """Multi-RHS solves (`solvers/batched.py`): each column of the block-
-batched CG must track a single-RHS `cg` run up to floating-point
-reduction order (the block product sums in a different order than the
-single dot, so trajectories drift at rounding level and stopping
-iterations can shift by 1-2 over hundreds of iterations)."""
+batched CG must meet the same stopping contract as a single-RHS `cg` run
+and agree with it to the accuracy that contract implies (the block
+product sums in a different order than the single dot, so trajectories
+drift at rounding level and stopping iterations can shift)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -31,16 +31,25 @@ def test_columns_match_single_cg():
     assert res.x.shape == (120, 5)
     for j in range(5):
         single = cg(op, jnp.asarray(B[:, j]), rtol=1e-8)
-        assert abs(int(res.info["n_iter_columns"][j])
-                   - int(single.n_iter)) <= 3, j
         # the block product's reduction order differs bitwise from the
-        # single dot, so iterates drift at rounding level (~1e-9 rel
-        # over hundreds of f64 iterations at cond 1e3) and the stopping
-        # iteration can shift by a couple
-        np.testing.assert_allclose(np.asarray(res.x[:, j]),
-                                   np.asarray(single.x),
-                                   rtol=1e-6, atol=1e-8)
+        # single dot.  At cond 1e3 CG runs past n iterations on lost
+        # orthogonality, where rounding moves the stopping iteration by
+        # several, so the counts are not compared; what must hold is:
         assert bool(res.converged[j]) == bool(single.converged)
+        # stopping contract on the TRUE residuals: both answers meet the
+        # rtol threshold (the f64 gap between recursive and true residual
+        # is ~eps*cond = 1e-13 relative, far inside the 1% margin)
+        bj = B[:, j]
+        thr = 1e-8 * np.linalg.norm(bj)
+        xb, xs = np.asarray(res.x[:, j]), np.asarray(single.x)
+        rb = np.linalg.norm(bj - a @ xb)
+        rs = np.linalg.norm(bj - a @ xs)
+        assert rb <= 1.01 * thr and rs <= 1.01 * thr, (j, rb, rs, thr)
+        # accuracy: xb - xs = A^-1 (rs_vec - rb_vec), and lambda_min(A)
+        # is 1 by construction, so |xb - xs| <= rb + rs whatever the
+        # two trajectories were (plus rounding of the f64 residuals)
+        assert (np.linalg.norm(xb - xs)
+                <= (rb + rs) * (1 + 1e-6) + 1e-12 * np.linalg.norm(xs)), j
         # the exact sub-threshold landing value is run-dependent; the
         # contract is the stopping rule itself
         assert (float(res.resid_norm[j])
@@ -646,7 +655,7 @@ def test_verified_block_front_door_rejects_unsupported():
 
 
 # ---------------------------------------------------------------------------
-# Batched SYMMLQ (VERDICT r3 #9)
+# Batched SYMMLQ
 # ---------------------------------------------------------------------------
 
 def test_symmlq_batched_columns_match_single():

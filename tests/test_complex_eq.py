@@ -1,8 +1,6 @@
 """Complex systems via the real-equivalent formulation
 (`ops/complex_eq.py`): packing isometry, block layout correctness, and
-end-to-end complex solves through real solvers — the path that runs
-complex problems on TPU hardware (complex dtypes are CPU-only on this
-platform, ROADMAP 'Complex on TPU')."""
+end-to-end complex solves through real solvers."""
 
 import numpy as np
 import jax.numpy as jnp

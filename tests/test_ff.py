@@ -3,7 +3,9 @@ residual-replacement CG built on it (SURVEY §7 "compensated algorithms
 to match residual histories in f32")."""
 
 import numpy as np
+import pytest
 
+import jax
 import jax.numpy as jnp
 
 from pykrylov_tpu.utils.ff import two_sum, two_prod, ff_add_ff
@@ -31,6 +33,26 @@ def test_two_prod_exact():
     exact = np.asarray(a, np.float64) * np.asarray(b, np.float64)
     got = np.asarray(p, np.float64) + np.asarray(e, np.float64)
     # Dekker product is exact for f32 inputs (no overflow/underflow here)
+    np.testing.assert_array_equal(got, exact)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fn", ["two_sum", "two_prod"])
+def test_error_free_on_card(gpu, fn):
+    # compiled for the card: an FMA contraction or reassociation by the
+    # GPU code generator would break the error-free transforms
+    rng = np.random.default_rng(2)
+    n = 1 << 20
+    a = (rng.standard_normal(n) * 2.0 ** rng.integers(-30, 30, n)
+         ).astype(np.float32)
+    b = (rng.standard_normal(n) * 2.0 ** rng.integers(-30, 30, n)
+         ).astype(np.float32)
+    f = {"two_sum": two_sum, "two_prod": two_prod}[fn]
+    hi, lo = jax.jit(f)(jnp.asarray(a), jnp.asarray(b))
+    assert hi.devices().pop().platform == "gpu"
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    exact = a64 + b64 if fn == "two_sum" else a64 * b64
+    got = np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
     np.testing.assert_array_equal(got, exact)
 
 

@@ -1,10 +1,8 @@
-"""Row-sharded BELL general-sparsity operator
-(`parallel/bell_sharded.py`) on the virtual 8-device CPU mesh.
-
-Same partition-time ppermute schedule as GatherEllOperator (SURVEY §7
-"halo exchange generality"), but the local compute is the BELL Pallas
-kernel (interpret mode here; the kernel itself is chip-verified by
-test_bell + the bench harness).
+"""Row-sharded general-sparsity operator (``GatherEllOperator``) on the
+virtual 8-device CPU mesh: the partition-time ppermute schedule (SURVEY §7
+"halo exchange generality") with XLA ELL local compute, checked product by
+product, through the transpose's reversed schedule, with uneven padding,
+and through the solvers that run on it.
 """
 
 import numpy as np
@@ -13,8 +11,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from pykrylov_tpu.parallel import (make_mesh, shard_vector,
-                                   GatherBellOperator, GatherEllOperator)
+from pykrylov_tpu.parallel import make_mesh, shard_vector, GatherEllOperator
 from pykrylov_tpu.sparse import formats as F
 from pykrylov_tpu.io.datasets import load_bundled
 from pykrylov_tpu.solvers.cg import cg
@@ -42,25 +39,22 @@ def _banded(n, bw, seed, per_row=6):
     return rows[first], cols[first], vals[first]
 
 
-def test_matches_dense_and_gather_ell(mesh):
+def test_matches_dense_and_schedule_accounting(mesh):
     n = 3000
     rows, cols, vals = _banded(n, 300, 5)
     a = _dense(vals, rows, cols, (n, n))
     coo = F.coo_from_arrays(vals, rows, cols, (n, n), device=False)
-    opb = GatherBellOperator(coo, mesh)
-    ope = GatherEllOperator(coo, mesh)
-    x = np.random.default_rng(6).standard_normal(opb.nargin)
+    op = GatherEllOperator(coo, mesh)
+    x = np.random.default_rng(6).standard_normal(op.nargin)
     xs = shard_vector(jnp.asarray(x), mesh)
-    yb = np.asarray(opb @ xs)
-    np.testing.assert_allclose(yb[:n], a @ x[:n], rtol=1e-11, atol=1e-11)
-    assert np.all(yb[n:] == 0)
-    # identical schedule -> identical comm accounting
-    assert (opb.comm_entries_per_matvec == ope.comm_entries_per_matvec)
-    assert (opb.allgather_entries_per_matvec
-            == ope.allgather_entries_per_matvec)
-    assert opb.comm_entries_per_matvec < opb.allgather_entries_per_matvec
+    y = np.asarray(op @ xs)
+    np.testing.assert_allclose(y[:n], a @ x[:n], rtol=1e-11, atol=1e-11)
+    assert np.all(y[n:] == 0)
+    # the schedule ships fewer entries than an all-gather of x
+    assert op.comm_entries_true <= op.comm_entries_per_matvec
+    assert op.comm_entries_per_matvec < op.allgather_entries_per_matvec
     # output stays sharded over the full mesh
-    out = jax.jit(lambda p, v: opb._mv(p, v))(opb._params, xs)
+    out = jax.jit(lambda p, v: op._mv(p, v))(op._params, xs)
     assert len(out.sharding.device_set) == 8
 
 
@@ -68,7 +62,7 @@ def test_jpwh_bundled(mesh):
     vals, rows, cols, shape = load_bundled("jpwh_991")
     a = _dense(vals, rows, cols, shape)
     coo = F.coo_from_arrays(vals, rows, cols, shape, device=False)
-    op = GatherBellOperator(coo, mesh)
+    op = GatherEllOperator(coo, mesh)
     x = np.random.default_rng(7).standard_normal(op.nargin)
     xs = shard_vector(jnp.asarray(x), mesh)
     y = np.asarray(op @ xs)
@@ -76,7 +70,7 @@ def test_jpwh_bundled(mesh):
                                rtol=1e-11, atol=1e-11)
 
 
-def test_cg_through_sharded_bell(mesh):
+def test_cg_through_sharded_ell(mesh):
     n = 600
     rng = np.random.default_rng(3)
     a = np.zeros((n, n))
@@ -85,7 +79,7 @@ def test_cg_through_sharded_bell(mesh):
     a = a @ a.T + np.eye(n) * 4
     rr, cc = np.nonzero(a)
     coo = F.coo_from_arrays(a[rr, cc], rr, cc, (n, n), device=False)
-    op = GatherBellOperator(coo, mesh, symmetric=True)
+    op = GatherEllOperator(coo, mesh, symmetric=True)
     b = np.zeros(op.nargin)
     b[:n] = rng.standard_normal(n)
     bs = shard_vector(jnp.asarray(b), mesh)
@@ -101,7 +95,7 @@ def test_uneven_rows_pad(mesh):
     rows, cols, vals = _banded(n, 60, 9, per_row=4)
     a = _dense(vals, rows, cols, (n, n))
     coo = F.coo_from_arrays(vals, rows, cols, (n, n), device=False)
-    op = GatherBellOperator(coo, mesh)
+    op = GatherEllOperator(coo, mesh)
     assert op.pad == op.shape[0] - n
     x = np.random.default_rng(10).standard_normal(op.nargin)
     xs = shard_vector(jnp.asarray(x), mesh)
@@ -111,12 +105,11 @@ def test_uneven_rows_pad(mesh):
 
 
 def test_transpose_matches_dense_oracle(mesh):
-    # reversed-schedule A' x with the BELL kernel over transposed
-    # local blocks
+    # reversed-schedule A' x
     vals, rows, cols, shape = load_bundled("jpwh_991")
     a = _dense(vals, rows, cols, shape)
     coo = F.coo_from_arrays(vals, rows, cols, shape, device=False)
-    op = GatherBellOperator(coo, mesh, with_transpose=True)
+    op = GatherEllOperator(coo, mesh)
     rng = np.random.default_rng(7)
     x = np.zeros(op.nargout)
     x[:shape[0]] = rng.standard_normal(shape[0])
@@ -135,21 +128,22 @@ def test_transpose_banded_uneven(mesh):
     rows, cols, vals = _banded(n, 60, 11)
     a = _dense(vals, rows, cols, (n, n))
     coo = F.coo_from_arrays(vals, rows, cols, (n, n), device=False)
-    op = GatherBellOperator(coo, mesh, with_transpose=True)
+    op = GatherEllOperator(coo, mesh)
     rng = np.random.default_rng(12)
-    x = rng.standard_normal(op.nargout)  # junk beyond n on purpose
+    x = np.zeros(op.nargout)
+    x[:n] = rng.standard_normal(n)
     xs = shard_vector(jnp.asarray(x), mesh)
     y = np.asarray(op.T @ xs)
     np.testing.assert_allclose(y[:n], a.T @ x[:n], rtol=1e-10,
                                atol=1e-10)
 
 
-def test_lsqr_through_sharded_bell(mesh):
+def test_lsqr_through_sharded_ell(mesh):
     from pykrylov_tpu.solvers.lsqr import lsqr
     vals, rows, cols, shape = load_bundled("jpwh_991")
     a = _dense(vals, rows, cols, shape)
     coo = F.coo_from_arrays(vals, rows, cols, shape, device=False)
-    op = GatherBellOperator(coo, mesh, with_transpose=True)
+    op = GatherEllOperator(coo, mesh)
     n = shape[0]
     b = np.zeros(op.nargin)
     b[:n] = a @ np.ones(n)
@@ -159,19 +153,17 @@ def test_lsqr_through_sharded_bell(mesh):
     assert np.linalg.norm(a @ x - b[:n]) <= 2e-6 * np.linalg.norm(b)
 
 
-def test_without_transpose_raises(mesh):
-    vals, rows, cols, shape = load_bundled("jpwh_991")
-    coo = F.coo_from_arrays(vals, rows, cols, shape, device=False)
-    op = GatherBellOperator(coo, mesh)
-    x = shard_vector(jnp.zeros(op.nargout), mesh)
-    with pytest.raises(Exception):
-        op.T @ x
+def test_symmetric_rectangular_raises(mesh):
+    coo = F.coo_from_arrays(np.ones(3), np.arange(3), np.arange(3),
+                            (5, 3), device=False)
+    with pytest.raises(ValueError, match="square"):
+        GatherEllOperator(coo, mesh, symmetric=True)
 
 
-def test_rectangular_bell_products_and_lsmr(mesh):
-    # rectangular container through the BELL local kernel: forward +
-    # reversed-schedule transpose vs the dense oracle, then a fully
-    # sharded LSMR solve (both sides sharded, no replicated n-side)
+def test_rectangular_products_and_lsmr(mesh):
+    # rectangular container: forward + reversed-schedule transpose vs the
+    # dense oracle, then a fully sharded LSMR solve (both sides sharded,
+    # no replicated n-side)
     from pykrylov_tpu.solvers.lsmr import lsmr
     rng = np.random.default_rng(31)
     m, n = 280, 104
@@ -182,39 +174,33 @@ def test_rectangular_bell_products_and_lsmr(mesh):
     a[idx] += 0.1 * rng.standard_normal(1500)
     rr, cc = np.nonzero(a)
     coo = F.coo_from_arrays(a[rr, cc], rr, cc, (m, n), device=False)
-    op = GatherBellOperator(coo, mesh, with_transpose=True)
+    op = GatherEllOperator(coo, mesh)
     assert op.nargin == n + op.pad_n and op.nargout == m + op.pad
     x = np.zeros(op.nargin)
     x[:n] = rng.standard_normal(n)
     xs = shard_vector(jnp.asarray(x), mesh)
     np.testing.assert_allclose(np.asarray(op @ xs)[:m], a @ x[:n],
-                               rtol=1e-6, atol=1e-6)
+                               rtol=1e-10, atol=1e-10)
     u = np.zeros(op.nargout)
     u[:m] = rng.standard_normal(m)
     us = shard_vector(jnp.asarray(u), mesh)
     np.testing.assert_allclose(np.asarray(op.T @ us)[:n], a.T @ u[:m],
-                               rtol=1e-6, atol=1e-6)
+                               rtol=1e-10, atol=1e-10)
     b = rng.standard_normal(m)
     bp = np.zeros(op.nargout)
     bp[:m] = b
     bs = shard_vector(jnp.asarray(bp), mesh)
     res = lsmr(op, bs, atol=1e-10, btol=1e-10, itnlim=8 * n)
     x_ref = np.linalg.lstsq(a, b, rcond=None)[0]
-    # the BELL kernel computes in f32 (one-hot MXU staging): the solve
-    # can only reach f32 matvec accuracy
+    # LSMR stops on |A'r| <= atol |A| |r|, which bounds the error only
+    # through the condition number: the same bound as the f32 test had
     np.testing.assert_allclose(np.asarray(res.x)[:n], x_ref, rtol=2e-3,
                                atol=5e-5)
 
 
-def test_gather_bell_block_product_matches_columns():
-    # matmat protocol on the scheduled-gather BELL operator (round 3):
-    # forward and transpose block products == per-column matvecs
-    import numpy as np
-    import jax.numpy as jnp
-    from pykrylov_tpu.parallel import make_mesh
-    from pykrylov_tpu.parallel.bell_sharded import GatherBellOperator
-    from pykrylov_tpu.sparse import formats as F
-
+def test_block_product_matches_columns():
+    # matmat protocol on the scheduled-gather operator: forward and
+    # transpose block products == per-column matvecs
     mesh = make_mesh(4)
     rng = np.random.default_rng(9)
     m = n = 600
@@ -223,8 +209,7 @@ def test_gather_bell_block_product_matches_columns():
     c = np.clip(r + rng.integers(-80, 80, nnz), 0, n - 1)
     v = rng.standard_normal(nnz).astype(np.float32)
     coo = F.coo_from_arrays(v, r, c, (m, n), device=False)
-    op = GatherBellOperator(coo, mesh, with_transpose=True)
-    assert op._mm is not None and op._rmm is not None
+    op = GatherEllOperator(coo, mesh)
     K = 3
     X = rng.standard_normal((op.nargin, K)).astype(np.float32)
     Y = np.asarray(op @ jnp.asarray(X))
@@ -238,12 +223,10 @@ def test_gather_bell_block_product_matches_columns():
     np.testing.assert_allclose(YT, colsT, rtol=2e-5, atol=2e-5)
 
 
-def test_gather_bell_verified_shadow(mesh):
-    """Round 5: ``verified_shadow=True`` registers a compensated
-    matvec over the retained ELL shadow (the Pallas slot storage has
-    none), so verified solves run at full strength on the kernel-path
-    sharded operator too; a shadowless operator with the same config
-    keeps the plain fallback."""
+def test_verified_cg_certificate(mesh):
+    """The operator registers a compensated (double-f32) matvec, so a
+    verified CG certifies its f32 solve below the plain-f32 floor
+    against the f64 host oracle."""
     from pykrylov_tpu.solvers.ffmv import resolve_ff_matvec
     rng = np.random.default_rng(23)
     n = 128 * 8
@@ -258,28 +241,20 @@ def test_gather_bell_verified_shadow(mesh):
     _, first = np.unique(key, return_index=True)
     coo = F.coo_from_arrays(vals[first], rows[first], cols2[first],
                             (n, n), device=False)
-    op_plain = GatherBellOperator(coo, mesh, symmetric=True)
-    op_shadow = GatherBellOperator(coo, mesh, symmetric=True,
-                                   verified_shadow=True)
-    assert resolve_ff_matvec(op_plain) is None
-    ff = resolve_ff_matvec(op_shadow)
+    op = GatherEllOperator(coo, mesh, symmetric=True)
+    ff = resolve_ff_matvec(op)
     assert ff is not None
     dense = np.zeros((n, n))
     np.add.at(dense, (rows[first], cols2[first]),
               vals[first].astype(np.float64))
     x32 = rng.standard_normal(n).astype(np.float32)
     xs = shard_vector(jnp.asarray(x32, jnp.float32), mesh)
-    yh, yl = ff(op_shadow._params, xs, jnp.zeros_like(xs))
+    yh, yl = ff(op._params, xs, jnp.zeros_like(xs))
     oracle = dense @ x32.astype(np.float64)
     got = np.asarray(yh, np.float64) + np.asarray(yl, np.float64)
     assert np.abs(got - oracle).max() / np.abs(oracle).max() < 1e-12
-    # matvecs agree between shadow and plain operators
-    y1 = np.asarray(op_plain @ xs)
-    y2 = np.asarray(op_shadow @ xs)
-    np.testing.assert_array_equal(y1, y2)
-    # verified CG certifies below the plain-f32 floor
-    b = op_shadow @ shard_vector(jnp.ones(n, jnp.float32), mesh)
-    res = cg(op_shadow, b, rtol=1e-10, atol=0.0, replace_every=10,
+    b = op @ shard_vector(jnp.ones(n, jnp.float32), mesh)
+    res = cg(op, b, rtol=1e-10, atol=0.0, replace_every=10,
              maxiter=4 * n)
     assert bool(res.converged)
     r64 = (np.asarray(b, np.float64)

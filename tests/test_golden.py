@@ -103,7 +103,7 @@ class TestMinresF32Parity:
         """MINRES/1138bus/Jacobi (BASELINE config #2): the f32 recurrence
         ESTIMATES track f64 so closely that the stopping iteration is
         within one iteration (412 at rtol 1e-6, 583-584 at rtol 1e-8 via the etol
-        window) — the f32-on-TPU parity evidence for the non-CG
+        window) — the f32 parity evidence for the non-CG
         symmetric solver.  (The TRUE residual floor differs; that is
         what verify_final / refined_solve certify.)"""
         from pykrylov_tpu.io.datasets import load_bundled
@@ -132,7 +132,7 @@ class TestMinresF32Parity:
 
 
 class TestResidualHistoryShape:
-    """BASELINE row 1 tightened past final counts (VERDICT r4 #7): the
+    """BASELINE row 1 tightened past final counts: the
     FULL residual histories of the golden configs are pinned by their
     decade-crossing iteration indices against the checked-in f64 oracle
     (``data/golden_histories.json``, generated by this build's own f64

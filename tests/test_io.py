@@ -100,7 +100,7 @@ class TestReferenceFiles:
 
 
 class TestPartitionedIngestion:
-    """SURVEY §2.5 host-sharded ingestion (VERDICT r4 #4): the
+    """SURVEY §2.5 host-sharded ingestion: the
     streaming row-block partitioned MatrixMarket loader."""
 
     @staticmethod

@@ -278,7 +278,7 @@ class TestSpecialOperators:
 
 
 class TestJitCompat:
-    """Operators are pytrees usable as jit arguments — the core TPU design."""
+    """Operators are pytrees usable as jit arguments — the core design."""
 
     def test_jit_through_operator_arg(self, rng):
         A = rng.standard_normal((4, 4))

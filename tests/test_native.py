@@ -100,24 +100,3 @@ def test_row_counts(rng):
     np.testing.assert_array_equal(native.row_counts_native(rows, 20),
                                   np.bincount(rows, minlength=20))
 
-
-def test_bell_plan_native_matches_python():
-    pytest.importorskip("numpy")
-    from pykrylov_tpu import native
-    if not native.available():
-        pytest.skip("no native toolchain")
-    from pykrylov_tpu.sparse.bell import _plan_blocks_py
-    rng = np.random.default_rng(7)
-    m = 2048
-    rows = np.sort(rng.integers(0, m, size=12000).astype(np.int64))
-    cols = rng.integers(0, m, size=12000).astype(np.int64)
-    order = np.lexsort((cols, rows))
-    rs, cs = rows[order], cols[order]
-    bs = cs // 128
-    nblocks = -(-m // 128)
-    bounds = np.searchsorted(rs // 128, np.arange(nblocks + 1))
-    for sc in (12.0, 40.0, None):
-        nat = native.bell_plan_native(rs, cs, nblocks, sc)
-        py = _plan_blocks_py(rs, cs, bs, bounds, nblocks, sc)
-        for a, b in zip(nat, py):
-            np.testing.assert_array_equal(a, b)

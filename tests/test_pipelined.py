@@ -76,7 +76,7 @@ def test_warm_start_and_history():
 def test_pipelined_single_fused_reduction_in_hlo():
     """The solver's reason to exist (communication hiding): classic CG
     compiles TWO all-reduces per iteration (r'u and p'Ap barriers),
-    pipelined CG's shared-operand dots fuse into ONE (VERDICT r4 #6).
+    pipelined CG's shared-operand dots fuse into ONE.
     Counted in the SPMD-partitioned HLO on an 8-device mesh: one more
     all-reduce outside the loop (resid0) in both."""
     import re

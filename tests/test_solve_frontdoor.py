@@ -286,7 +286,7 @@ def test_solve_block_dispatch():
     assert res.x.shape == (n, K)
 
     # verified blocks route to cg_batched's residual-replacement mode
-    # for symmetric square systems (VERDICT r3 #3)...
+    # for symmetric square systems...
     res = solve(A, jnp.asarray(spd @ Xs), verified=True, rtol=1e-8)
     assert res.x.shape == (n, K) and bool(res.converged.all())
     assert "n_replacements" in res.info
@@ -315,62 +315,3 @@ def test_fused_fallback_promotes_mixed_dtype_rhs():
     np.testing.assert_allclose(np.asarray(res.x), x_true, rtol=1e-5,
                                atol=1e-7)
 
-
-def test_solve_permuted_space_rcm_operator():
-    """RCM-wrapped BELL operators expose ``solve_permutation``; the
-    front door solves in the PERMUTED space (b/x transformed once)
-    instead of paying the wrapper's two O(m) gathers per matvec
-    (measured gather-dominated on-chip, round 5).  Residuals and
-    iteration counts are invariant; Jacobi preconditioners permute
-    their diagonal."""
-    from pykrylov_tpu import solve
-    from pykrylov_tpu.ops import DiagonalOperator
-    from pykrylov_tpu.sparse import formats as F
-    from pykrylov_tpu.sparse.bell import bell_operator
-
-    rng = np.random.default_rng(13)
-    n = 4096
-    perm = rng.permutation(n)
-    rows, cols, vals = [], [], []
-    for b0 in range(0, n, 64):
-        rr = rng.integers(b0, b0 + 64, 250)
-        cc = rng.integers(b0, b0 + 64, 250)
-        rows.append(perm[rr]); cols.append(perm[cc])
-        vals.append(0.1 * rng.standard_normal(250))
-    rows = np.concatenate(rows); cols = np.concatenate(cols)
-    vals = np.concatenate(vals)
-    d = np.zeros(n)
-    np.add.at(d, rows, np.abs(vals)); np.add.at(d, cols, np.abs(vals))
-    allr = np.concatenate([rows, cols, np.arange(n)])
-    allc = np.concatenate([cols, rows, np.arange(n)])
-    allv = np.concatenate([vals, vals, d + 2.0])
-    coo = F.coo_from_arrays(allv, allr, allc, (n, n), device=False)
-    op = bell_operator(coo, symmetric=True, reorder=True, nb_max=16,
-                       spill_cost=None)
-    assert hasattr(op, "solve_permutation")
-    dense = np.zeros((n, n))
-    np.add.at(dense, (allr, allc), allv)
-    xstar = rng.standard_normal(n)
-    b = jnp.asarray(dense @ xstar)
-
-    res = solve(op, b, rtol=1e-10)
-    assert bool(res.converged)
-    assert np.abs(np.asarray(res.x) - xstar).max() < 1e-8
-    # diagonal preconditioner permutes its diagonal (no gather wrap)
-    M = DiagonalOperator(jnp.asarray(1.0 / dense.diagonal()))
-    res2 = solve(op, b, M=M, rtol=1e-10)
-    assert bool(res2.converged)
-    assert np.abs(np.asarray(res2.x) - xstar).max() < 1e-8
-    # block RHS rides the same transform
-    B2 = jnp.stack([b, 0.5 * b], axis=1)
-    res3 = solve(op, B2, rtol=1e-10)
-    assert np.abs(np.asarray(res3.x)[:, 0] - xstar).max() < 1e-8
-    # iteration parity with the inner permuted-space solve
-    p, ip, inner = op.solve_permutation
-    resI = solve(inner, b[jnp.asarray(p)], rtol=1e-10)
-    assert int(resI.n_iter) == int(res.n_iter)
-    # verified=True rides the transform too (plain-replacement legs:
-    # the BELL storage has no compensated path)
-    resv = solve(op, b, verified=True, rtol=1e-8)
-    assert bool(resv.converged)
-    assert np.abs(np.asarray(resv.x) - xstar).max() < 1e-6

@@ -1,20 +1,16 @@
 """Native block-product (SpMM) paths: the matmat protocol on the
-operator layer, and the fused BELL/DIA SpMM kernels (interpret mode).
+operator layer, and block products of the sparse operators.
 
 Reference analogue: the per-RHS loop multi-solve inherits from
-``generic/generic.py:79-87``; the TPU redesign amortizes the matrix
-stream over the RHS block instead (SURVEY §2.5).
+``generic/generic.py:79-87``; this redesign amortizes the matrix stream
+over the RHS block instead (SURVEY §2.5).
 """
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
 from pykrylov_tpu.sparse import formats as F
-from pykrylov_tpu.sparse.bell import (bell_from_coo, bell_matmat_pallas,
-                                      bell_to_dense, bell_operator)
-from pykrylov_tpu.sparse.kernels import (pallas_dia_operator,
-                                         dia_matmat_packed, pack_dia,
-                                         ensure_dia_padded)
+from pykrylov_tpu.sparse import SparseOperator
 from pykrylov_tpu.ops.base import (LinearOperator, DiagonalOperator,
                                    linop_from_ndarray)
 
@@ -26,68 +22,6 @@ def _rand_coo(rng, m, n, nnz, bw):
     d = np.zeros((m, n), np.float32)
     np.add.at(d, (r, c), v)
     return v, r, c, d
-
-
-@pytest.mark.parametrize("window,spill", [(1, None), (2, None),
-                                          (1, 12.0), (2, 12.0)])
-def test_bell_matmat_matches_dense(window, spill):
-    rng = np.random.default_rng(3)
-    m, n = 300, 280
-    v, r, c, d = _rand_coo(rng, m, n, 2500, 60)
-    b = bell_from_coo(F.coo_from_arrays(v, r, c, (m, n), device=False),
-                      window=window, spill_cost=spill)
-    do = np.asarray(bell_to_dense(b))
-    np.testing.assert_allclose(do, d, rtol=0, atol=1e-6)
-    K = 5
-    X = rng.standard_normal((b.padded_shape[1], K)).astype(np.float32)
-    Y = np.asarray(bell_matmat_pallas(b, jnp.asarray(X), interpret=True))
-    Yd = do @ X[:n]
-    assert np.abs(Y[:m] - Yd).max() <= 5e-5 * max(1, np.abs(Yd).max())
-
-
-def test_bell_operator_block_product_and_transpose():
-    rng = np.random.default_rng(5)
-    m, n = 260, 300
-    v, r, c, d = _rand_coo(rng, m, n, 2200, 70)
-    op = bell_operator((v, r, c, (m, n)), interpret=True)
-    assert op._mm is not None and op._rmm is not None
-    X = rng.standard_normal((n, 4)).astype(np.float32)
-    Y = np.asarray(op @ jnp.asarray(X))
-    np.testing.assert_allclose(Y, d @ X, rtol=1e-4, atol=1e-4)
-    # wider than the per-call cap: exercises the XLA-level K chunking
-    Xw = rng.standard_normal((n, 11)).astype(np.float32)
-    Yw = np.asarray(op @ jnp.asarray(Xw))
-    np.testing.assert_allclose(Yw, d @ Xw, rtol=1e-4, atol=1e-4)
-    XT = rng.standard_normal((m, 4)).astype(np.float32)
-    YT = np.asarray(op.T @ jnp.asarray(XT))
-    np.testing.assert_allclose(YT, d.T @ XT, rtol=1e-4, atol=1e-4)
-
-
-def test_bell_matmat_right_edge_clamp_alignment():
-    # Regression (round-3 review): a step whose window is clamped at
-    # the right column edge used to get a NON-8-aligned band_lo; the
-    # SpMM kernel transports band_lo//8 in oct units, so the window
-    # silently shifted left and A@X was wrong on the edge blocks while
-    # the matvec stayed exact.  n = 128*18 with last-step bands 16-17
-    # reproduces: clamp target was min(16, 18-8)=10.
-    rng = np.random.default_rng(13)
-    m, n = 128 * 20, 128 * 18
-    nnz = 3000
-    r = rng.integers(0, m, nnz)
-    c = np.clip((r * n) // m + rng.integers(-100, 100, nnz), 0, n - 1)
-    # force entries in the very last bands for the tail rows
-    tail = r >= m - 256
-    c[tail] = n - 1 - (r[tail] % 200)
-    v = rng.standard_normal(nnz).astype(np.float32)
-    d = np.zeros((m, n), np.float32)
-    np.add.at(d, (r, c), v)
-    b = bell_from_coo(F.coo_from_arrays(v, r, c, (m, n), device=False),
-                      window=1, nblk=8)
-    assert not (np.asarray(b.band_lo) % 8).any()
-    X = rng.standard_normal((b.padded_shape[1], 3)).astype(np.float32)
-    Y = np.asarray(bell_matmat_pallas(b, jnp.asarray(X), interpret=True))
-    Yd = d @ X[:n]
-    np.testing.assert_allclose(Y[:m], Yd, rtol=1e-4, atol=1e-4)
 
 
 def test_cgs_batched_sigma_breakdown_restores_iterate():
@@ -107,16 +41,6 @@ def test_cgs_batched_sigma_breakdown_restores_iterate():
     assert np.isfinite(float(res.resid_norm[0]))
 
 
-def test_bell_operator_block_product_reordered():
-    rng = np.random.default_rng(6)
-    m = 400
-    v, r, c, d = _rand_coo(rng, m, m, 3000, 40)
-    op = bell_operator((v, r, c, (m, m)), interpret=True, reorder=True)
-    X = rng.standard_normal((m, 3)).astype(np.float32)
-    Y = np.asarray(op @ jnp.asarray(X))
-    np.testing.assert_allclose(Y, d @ X, rtol=1e-4, atol=1e-4)
-
-
 def test_dia_matmat_matches_dense():
     rng = np.random.default_rng(7)
     m = 1024
@@ -127,16 +51,12 @@ def test_dia_matmat_matches_dense():
         d[i, i + off] = rng.standard_normal(len(i)).astype(np.float32)
     rr, cc = np.nonzero(d)
     dia = F.dia_from_coo(F.coo_from_arrays(d[rr, cc], rr, cc, (m, m),
-                                           device=False), device=False)
-    dia = F.DIA(jnp.asarray(dia.data), dia.offsets, dia.shape)
-    dia_p, _ = ensure_dia_padded(dia, 512)
-    d3, offs = pack_dia(dia_p, 512)
+                                           device=False))
+    op = SparseOperator(dia)
     K = 3
-    X = rng.standard_normal((dia_p.shape[0], K)).astype(np.float32)
-    Y = np.asarray(dia_matmat_packed(d3, offs, jnp.asarray(X), block=512,
-                                     interpret=True))
-    Yd = d @ X[:m]
-    np.testing.assert_allclose(Y[:m], Yd, rtol=1e-4, atol=1e-4)
+    X = rng.standard_normal((m, K)).astype(np.float32)
+    Y = np.asarray(op @ jnp.asarray(X))
+    np.testing.assert_allclose(Y, d @ X, rtol=1e-4, atol=1e-4)
 
 
 def test_dia_operator_block_product():
@@ -145,8 +65,9 @@ def test_dia_operator_block_product():
     offsets = (-2, 0, 5)
     data = rng.standard_normal((len(offsets), m)).astype(np.float32)
     dia = F.DIA(jnp.asarray(data), offsets, (m, m))
-    op = pallas_dia_operator(dia, block=256, interpret=True)
-    assert op._mm is not None
+    dia_t = F.dia_from_coo(F.transpose_coo(F.coo_from_arrays(
+        *_dia_triples(data, offsets, m), (m, m), device=False)))
+    op = SparseOperator(dia, dia_t)
     X = rng.standard_normal((op.nargin, 4)).astype(np.float32)
     Y2 = np.asarray(op @ jnp.asarray(X))
     cols = np.stack([np.asarray(op @ jnp.asarray(X[:, k]))
@@ -156,6 +77,17 @@ def test_dia_operator_block_product():
     colsT = np.stack([np.asarray(op.T @ jnp.asarray(X[:, k]))
                       for k in range(4)], axis=1)
     np.testing.assert_allclose(YT, colsT, rtol=1e-5, atol=1e-5)
+
+
+def _dia_triples(data, offsets, m):
+    """COO triples of a square DIA matrix (slots past the edge dropped)."""
+    vals, rows, cols = [], [], []
+    for k, off in enumerate(offsets):
+        i = np.arange(max(0, -off), min(m, m - off))
+        vals.append(data[k, i])
+        rows.append(i)
+        cols.append(i + off)
+    return np.concatenate(vals), np.concatenate(rows), np.concatenate(cols)
 
 
 def test_matmat_propagates_through_algebra():
@@ -186,16 +118,17 @@ def test_matmat_kwarg_plain_closure():
 
 
 def test_batched_cg_uses_block_product():
-    # cg_batched over a pallas DIA operator: interpret mode, correctness
+    # cg_batched over a DIA sparse operator: one block product per
+    # iteration for all K columns
     from pykrylov_tpu.solvers.batched import cg_batched
     m = 512
     rng = np.random.default_rng(11)
     main = 4.0 + rng.random(m).astype(np.float32)
     off = -np.ones(m, np.float32)
     data = np.stack([off, main, off])
+    data[0, 0] = data[2, -1] = 0.0      # slots past the edge
     dia = F.DIA(jnp.asarray(data), (-1, 0, 1), (m, m))
-    op = pallas_dia_operator(dia, symmetric=True, block=256,
-                             interpret=True)
+    op = SparseOperator(dia, symmetric=True)
     d = np.zeros((m, m), np.float32)
     d[np.arange(m), np.arange(m)] = main
     d[np.arange(1, m), np.arange(m - 1)] = -1
